@@ -1,0 +1,112 @@
+"""Request/response interface between torus models and fitmask engines.
+
+A torus *submits* its per-epoch mask work to whatever client is
+installed; :class:`InlineMaskClient` answers immediately from one
+engine. The contract is the two primitives every policy reduces to:
+
+  ``multibox(occ, boxes) -> (B, K, X, Y, Z) integer/bool numpy``
+      occ is a (B, X, Y, Z) bool grid batch; plane k is the full-grid
+      fit mask of ``boxes[k]``, *nonzero where the box fits* (zero
+      where it overhangs or cannot fit), in the request's box order.
+      Consumers test ``!= 0`` rather than comparing dtypes.
+  ``free_counts(occ) -> (B,) int64 numpy``
+      free cells per grid.
+
+Both return host numpy arrays: the tensor engines answer on their
+device, and the client copies the answer back (``.cpu().numpy()``) so
+callers index and cache plain arrays. Answers are a pure function of
+``(occ[b], box)`` per plane.
+
+The numpy *host* path (integral images built directly inside the
+torus) is represented by ``None`` — it is not an engine call.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+Box = Tuple[int, int, int]
+
+
+def to_numpy(x) -> np.ndarray:
+    """Host numpy view of an engine answer: a tensor on any device is
+    copied back; a numpy array passes through."""
+    if hasattr(x, "detach"):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+class MaskQueryClient:
+    """The request/response contract a torus submits mask work to.
+
+    ``host_free`` advertises that the backing engine computes on the
+    host with cost linear in the number of boxes (numpy). Toruses use
+    it to choose a *lazy* mask strategy (ask only for the shape in
+    hand) instead of the prefetch-everything-seen strategy that
+    amortizes a launch on the device engines."""
+
+    host_free = False
+
+    def multibox(self, occ, boxes: Sequence[Box]) -> np.ndarray:
+        """(B, X, Y, Z) occupancy x K boxes -> (B, K, X, Y, Z) numpy,
+        nonzero where the box fits (consumers test ``!= 0``)."""
+        raise NotImplementedError
+
+    def free_counts(self, occ) -> np.ndarray:
+        """(B, X, Y, Z) occupancy -> (B,) int64 free-cell counts."""
+        raise NotImplementedError
+
+
+class InlineMaskClient(MaskQueryClient):
+    """Answers requests immediately from one fitmask engine and copies
+    the answer to host numpy. ``seconds`` accumulates the host time spent
+    answering; each answer ends in a copy to the host, so it includes the
+    device's work."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.host_free = bool(getattr(engine, "host_free", False))
+        self.seconds = 0.0
+
+    def multibox(self, occ, boxes: Sequence[Box]) -> np.ndarray:
+        t0 = time.perf_counter()
+        if len(boxes) == 1:
+            # A lone candidate takes the engine's single-box entry point.
+            # The answer is the same as multibox's; the branch exists only
+            # so the placement loop drives the single-box kernel.
+            out = to_numpy(self.engine.fitmask(occ, boxes[0]))[:, None]
+        else:
+            out = to_numpy(self.engine.multibox(occ, boxes))
+        self.seconds += time.perf_counter() - t0
+        return out
+
+    def free_counts(self, occ) -> np.ndarray:
+        t0 = time.perf_counter()
+        out = to_numpy(self.engine.free_counts(occ)).astype(np.int64)
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+# Inline clients are interned per engine instance: `client is` identity
+# then doubles as "same backend as last epoch" in the torus caches
+# (engines themselves are interned per (name, device) in the registry).
+_INLINE: Dict[int, InlineMaskClient] = {}
+
+
+def resolve_mask_client(selection=None) -> Optional[InlineMaskClient]:
+    """Resolve an engine selection to an inline client: ``None`` for
+    the builtin numpy host path, a cached :class:`InlineMaskClient`
+    otherwise. ``selection`` is an engine name, an
+    :class:`~repro_torch.core.engineconfig.EngineConfig`, or ``None`` —
+    all resolved through ``EngineConfig.resolve_name()``."""
+    from repro_torch.core.engineconfig import EngineConfig
+    cfg = EngineConfig.coerce(selection)
+    if cfg.resolve_name() == "numpy":
+        return None
+    engine = cfg.get_engine()
+    client = _INLINE.get(id(engine))
+    if client is None:
+        client = _INLINE[id(engine)] = InlineMaskClient(engine)
+    return client

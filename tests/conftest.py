@@ -21,6 +21,8 @@ import zlib
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (subprocess compiles etc.)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one)")
 
 
 def _install_hypothesis_stub() -> None:

@@ -1,0 +1,119 @@
+"""Port parity for traces, the simulator and its metrics, and the
+port's import boundary (no JAX, nothing of ``repro``)."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core.allocator import make_policy as ref_make_policy
+from repro.sim import metrics as ref_metrics
+from repro.sim.simulator import Simulator as RefSimulator
+from repro.traces import generator as ref_gen
+from repro_torch.core.allocator import make_policy
+from repro_torch.core.engineconfig import EngineConfig
+from repro_torch.sim import metrics
+from repro_torch.sim.job import jobs_from_numpy
+from repro_torch.sim.simulator import Simulator
+from repro_torch.traces import generator as gen
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+TRACE_KW = [
+    dict(),
+    dict(target_load=1.5, num_jobs=200),
+    dict(size_duration_corr=0.6),
+    dict(arrival_burstiness=0.5, priority_levels=3),
+    dict(round_even=False, cube4_decomposable=False),
+]
+
+
+def trace_arrays(jobs):
+    return (np.array([j.job_id for j in jobs]),
+            np.array([j.arrival for j in jobs]),
+            np.array([j.duration for j in jobs]),
+            np.array([j.shape.dims for j in jobs]),
+            np.array([j.priority for j in jobs]))
+
+
+@pytest.mark.parametrize("kw", TRACE_KW, ids=lambda kw: ",".join(kw) or "default")
+@pytest.mark.parametrize("seed", [0, 7])
+def test_seeded_traces_are_byte_identical(kw, seed):
+    want = ref_gen.generate_trace(ref_gen.TraceConfig(seed=seed, **kw))
+    got = gen.generate_trace(gen.TraceConfig(seed=seed, **kw))
+    for a, b in zip(trace_arrays(got), trace_arrays(want)):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def test_philly_preset_is_byte_identical():
+    want = ref_gen.generate_trace(ref_gen.TraceConfig.preset("philly",
+                                                             num_jobs=80))
+    got = gen.generate_trace(gen.TraceConfig.preset("philly", num_jobs=80))
+    for a, b in zip(trace_arrays(got), trace_arrays(want)):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_jobs_from_numpy_round_trip():
+    ref_jobs = ref_gen.generate_trace(ref_gen.TraceConfig(
+        num_jobs=25, seed=4, priority_levels=2))
+    jobs = jobs_from_numpy(*trace_arrays(ref_jobs))
+    for a, b in zip(trace_arrays(jobs), trace_arrays(ref_jobs)):
+        assert a.tobytes() == b.tobytes()
+    assert all(j.start is None and not j.dropped for j in jobs)
+    no_prio = jobs_from_numpy(*trace_arrays(ref_jobs)[:4])
+    assert all(j.priority == 0 for j in no_prio)
+
+
+SIM_KW = [dict(), dict(backfill=True), dict(gated=False),
+          dict(broken_ring_slowdown=1.5)]
+
+
+@pytest.mark.parametrize("sim_kw", SIM_KW,
+                         ids=lambda kw: ",".join(kw) or "default")
+@pytest.mark.parametrize("policy,kw", [("folding", dict(dims=(8, 8, 8))),
+                                       ("rfold", dict(num_xpus=512,
+                                                      cube_n=4))])
+def test_simulator_and_metrics_match_reference(policy, kw, sim_kw):
+    cfg = dict(num_jobs=30, seed=3, size_scale=48.0, size_max=512,
+               cluster_xpus=512, target_load=1.5, cube4_budget=8)
+    ref_jobs = ref_gen.generate_trace(ref_gen.TraceConfig(**cfg))
+    want = RefSimulator(ref_make_policy(policy, engine="numpy", **kw),
+                        ref_jobs, **sim_kw).run()
+    got = Simulator(make_policy(policy, engine=EngineConfig(
+        "cuda", device="cpu"), **kw),
+        jobs_from_numpy(*trace_arrays(ref_jobs)), **sim_kw).run()
+    assert [(j.start, j.finish, j.dropped, j.slowdown, j.placement_meta)
+            for j in got.jobs] == \
+        [(j.start, j.finish, j.dropped, j.slowdown, j.placement_meta)
+         for j in want.jobs]
+    assert repr(metrics.summarize(got)) == repr(ref_metrics.summarize(want))
+    for a, b in zip(metrics.utilization_cdf(got),
+                    ref_metrics.utilization_cdf(want)):
+        assert a.tobytes() == b.tobytes()
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    """Import every module of the port and chip_smoke in a fresh process;
+    neither JAX nor any ``repro`` module may be loaded."""
+    code = """
+import pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    __import__(m.name)
+import chip_smoke
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "repro"))
+mods = sorted(n for n in sys.modules if n.startswith("repro_torch."))
+print(len(mods))
+assert not bad, bad
+"""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(ROOT, "src"), ROOT]))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
