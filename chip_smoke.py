@@ -3,18 +3,30 @@
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
-1. Prints the card's name and power limit (``nvidia-smi``).
-2. Builds the CUDA fitmask kernels from ``src/repro_torch/csrc`` (nvcc,
-   sm_90a).
-3. Kernel phase: holds each kernel bit-exact against its plain PyTorch
-   version on the card, at the shapes the placement loop gives it, and
-   times both beside the least time the card could take (its bound).
-4. Main-path phase: runs the eight Table 1 / Fig 3 placement
+1. Prints the card's name and power limit (``nvidia-smi``), and sets
+   and prints the fp32 numerics (no TF32 in matmuls or cuDNN).
+2. Builds the three CUDA sources of ``src/repro_torch/csrc`` (fitmask,
+   flash attention, SSD scan) with nvcc for sm_90a, one nvcc process per
+   source, all started together, and prints each ``-Xptxas -v`` report.
+3. Fitmask kernel phase: holds K1-K3 bit-exact against their plain
+   PyTorch versions on the card, at the shapes the placement loop gives
+   them, and times both beside the least time the card could take (the
+   bound).
+4. Placement main path: runs the eight Table 1 / Fig 3 placement
    configurations at 4096 XPUs on the 200-job trace (seed 0,
    ``target_load=1.5``) through the ``cuda`` engine, and again through
    the host ``numpy`` engine. Schedules and summaries must be identical,
-   and each kernel must have been launched by the ``cuda`` runs.
-5. Prints one JSON line per the kernel table, then the result line.
+   and each fitmask kernel must have been launched by the ``cuda`` runs.
+5. Sequence kernel phase: holds K4 (flash attention) and K5 (SSD scan)
+   against their plain versions in fp32 and bf16, at the zamba2 prefill
+   shapes and at edge cases, within stated tolerances, and times them
+   beside their bounds and, for K4, PyTorch's SDPA.
+6. Serve main path, zamba2-1.2b at full width (38 layers, fp32, random
+   weights from seed 0): the prefill forward at B 2, S 4096 through the
+   kernels (exactly 6 K4 and 38 K5 launches) against the plain path;
+   128 decode steps against the prefill logits; and greedy serving
+   through ``repro_torch.launch.serve`` at its default sizes.
+7. Prints one JSON line per the kernel table, then the result line.
 
 Any failure raises and exits non-zero. With no CUDA device, or without
 the repository's ``src/repro_torch`` beside it, it exits non-zero and
@@ -33,10 +45,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, and the INT32 ALU
-# issue rate (64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost).
+# H100 SXM peaks (NVIDIA data sheet): HBM3 rate, the INT32 ALU issue
+# rate (64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost), fp32 on the
+# CUDA cores and dense bf16 on the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 # benchmarks/paper_eval.py: TABLE1_CONFIGS + FIG3_EXTRA_CONFIGS.
 CONFIGS = [
@@ -55,8 +69,35 @@ REPLACES = {
     "fitmask_multibox": "src/repro/kernels/fitmask/kernel.py:117",
     "fitmask_batched": "src/repro/kernels/fitmask/kernel.py:90",
     "occupancy_counts": "src/repro/kernels/fitmask/kernel.py:143",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
+    "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:94",
 }
-SOURCE = "src/repro_torch/csrc/fitmask.cu"
+SOURCE = {"fitmask_multibox": "fitmask.cu", "fitmask_batched": "fitmask.cu",
+          "occupancy_counts": "fitmask.cu",
+          "flash_attention": "flash_attention.cu", "ssd_scan": "ssd_scan.cu"}
+SOURCES = tuple(dict.fromkeys(SOURCE.values()))     # in src/repro_torch/csrc
+
+# Sequence kernels against their plain versions on the card, as
+# (atol, rtol). fp32: the kernel and the plain version differ only in
+# the order of fp32 sums (K5 also in the order of its prefix sum, whose
+# exp() amplifies it), so agreement to 1e-5 (K4) and 1e-4 (K5, as the
+# Pallas kernel's state tolerance) is expected. bf16: both round the
+# same fp32 result to bf16, so they may differ by one bf16 ulp, at most
+# 2^-7 (0.0078) of the value. K4's bf16 limit is that ulp (rtol 1e-2)
+# plus 4e-3 for outputs near 0: at the path shape a softmax average over
+# thousands of keys is only 0.02-0.04, so a looser atol would pass a
+# kernel that dropped a k tile (max error measured on an H100: 0.0039).
+# K5's bf16 outputs reach 8-16, where one ulp is 0.0625; 5e-2 (atol and
+# rtol) is tests/test_kernels.py's bf16 tolerance.
+FA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (4e-3, 1e-2)}
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 5e-2)}
+# zamba2-1.2b prefill: kernel path against plain path, max |d logits| <=
+# LOGIT_REL * max |logits| (38 layers of fp32 sums in another order).
+LOGIT_REL = 1e-3
+# Decode (ssd_step recurrence, einsum attention over the cache) against
+# the prefill logits: tests/test_arch_smoke.py's 2e-3, atol and rtol.
+DECODE_TOL = 2e-3
+PREFILL_B, PREFILL_S, DECODE_S = 2, 4096, 128
 
 
 def all_shapes(n):
@@ -101,6 +142,17 @@ def occupancy(rng, bsz, n, device):
     return torch.from_numpy(occ).to(device)
 
 
+def reps_for(fn, budget_ms=400.0):
+    """Repetitions that fit one timing in about ``budget_ms`` (3 to 50),
+    from one synchronised call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one = (time.perf_counter() - t0) * 1e3
+    return int(max(3, min(50, budget_ms / max(one, 1e-3))))
+
+
 def time_ms(fn, reps=50):
     """Mean time per call, by CUDA events around back-to-back calls after
     warm-up: what a caller pays, host overhead between launches included."""
@@ -119,14 +171,15 @@ def time_ms(fn, reps=50):
 
 def device_ms(fn, call_ms, reps=50):
     """Mean device time per call: the calls are queued behind a spin
-    kernel that outlasts their enqueueing (4x the measured call time), so
-    the card runs them back to back and host overhead is hidden. Only for
-    calls that never block the host."""
+    kernel that outlasts their enqueueing (4x the measured call time,
+    counting at most 0.5 ms a call: no wrapper spends longer on the
+    host), so the card runs them back to back and host overhead is
+    hidden. Only for calls that never block the host."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(int(4 * reps * call_ms * 2.0e6))   # ~2e6 cycles/ms
+    torch.cuda._sleep(int(4 * reps * min(call_ms, 0.5) * 2.0e6))  # ~2e6/ms
     start.record()
     for _ in range(reps):
         fn()
@@ -135,10 +188,10 @@ def device_ms(fn, call_ms, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, ops_per_s=INT32_OPS_PER_S):
     """Least time in ms for the work, and which side bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / INT32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -276,6 +329,355 @@ def main_path_phase(kernel, device):
     return totals
 
 
+def build_all():
+    """One nvcc process per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = list(pool.map(_build.build, SOURCES))
+    print("# build: %.1f s for %d sources in parallel"
+          % (time.perf_counter() - t0, len(SOURCES)))
+    for source, (lib, log) in zip(SOURCES, built):
+        print("# %s -> %s" % (source, lib))
+        for line in log.splitlines():
+            if any(w in line for w in ("registers", "Compiling entry",
+                                       "spill")):
+                print("#   " + line.strip())
+
+
+# -- sequence kernels (K4, K5) -------------------------------------------
+
+FA_CASES = [   # label, B, S, H, KH, D, window
+    ("path", PREFILL_B, PREFILL_S, 32, 32, 64, 8192),
+    ("gqa 32:8", 2, 2048, 32, 8, 128, None),
+    ("window 64", 2, 1024, 32, 32, 64, 64),
+    ("ragged S 1000", 2, 1000, 32, 32, 64, None),
+]
+SSD_CASES = [  # label, B, S, H, P, N, chunk, with d_skip
+    ("path", PREFILL_B, PREFILL_S, 64, 64, 64, 128, True),
+    ("single chunk", 2, 128, 64, 64, 64, 128, True),
+    ("no d_skip", 2, 1024, 64, 64, 64, 128, False),
+]
+
+
+def attention_work(b, s, h, kh, d, window, dtype):
+    """Bytes (q, k, v read once, out written once) and FLOP (2 products
+    of 2 FLOP per unmasked causal (q, k) pair and head column)."""
+    esz = torch.finfo(dtype).bits // 8
+    w = window if window and window < s else s
+    pairs = w * (w + 1) // 2 + (s - w) * w
+    return esz * (2 * b * s * h * d + 2 * b * s * kh * d), 4 * b * h * d * pairs
+
+
+def ssd_work(b, s, h, p, n, chunk, dtype, with_d):
+    """Bytes (x, B, C, dt, a, d read once; y and the fp32 state written
+    once) and FLOP per chunk and head: Q (Q + 1) (N + P) for the causal
+    (s <= t) half of C B^T and of the masked matrix times X, the only
+    half the function needs, plus 4 Q N P for C state^T and the state
+    update. Counted like attention_work: unmasked pairs only."""
+    esz = torch.finfo(dtype).bits // 8
+    nbytes = (esz * b * s * h * (2 * p + 2 * n) + 4 * b * s * h
+              + 4 * h * (2 if with_d else 1) + 4 * b * h * p * n)
+    nops = ((chunk * (chunk + 1) * (n + p) + 4 * chunk * n * p)
+            * b * h * (s // chunk))
+    return nbytes, nops
+
+
+def _time_all(fn, plain, library):
+    reps = reps_for(fn)
+    call_ms = time_ms(fn, reps)
+    ms = device_ms(fn, call_ms, reps)
+    plain_ms = time_ms(plain, reps_for(plain))
+    lib_ms = None
+    if library is not None:
+        lreps = reps_for(library)
+        lib_ms = device_ms(library, time_ms(library, lreps), lreps)
+    return ms, call_ms, plain_ms, lib_ms
+
+
+def seq_kernel_phase(device):
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device).manual_seed(SEED)
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device) * scale
+                ).to(dtype)
+
+    def uniform(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=device) * (hi - lo) + lo
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, b, s, h, kh, d, window in FA_CASES:
+            q = randn((b, s, h, d), dtype)
+            k, v = randn((b, s, kh, d), dtype), randn((b, s, kh, d), dtype)
+            fn = lambda: fa.flash_attention(q, k, v, True, window)  # noqa: E731
+            plain = lambda: fa.flash_attention_plain(q, k, v, True, window)  # noqa: E731
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            atol, rtol = FA_TOL[dtype]
+            torch.testing.assert_close(
+                got.float(), want.float(), rtol=rtol, atol=atol,
+                msg=lambda m: f"flash_attention {label} {dtype}: kernel "
+                f"differs from its plain version: {m}")
+            del got, want
+            library = None
+            if window is None or window >= s:    # SDPA has no window
+                qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+                library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    qt, kt, vt, is_causal=True, enable_gqa=kh < h)
+            ms, call_ms, plain_ms, lib_ms = _time_all(fn, plain, library)
+            nbytes, nops = attention_work(b, s, h, kh, d, window, dtype)
+            bms, by = bound(nbytes, nops, PEAK_FLOPS[dtype])
+            rows.append(dict(
+                name="flash_attention", case=label, dtype=str(dtype)[6:],
+                shape=[b, s, h, kh, d], window=window, max_abs_err=err,
+                tol="%g/%g" % FA_TOL[dtype], ms=ms, call_ms=call_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                bound_by=by))
+            del q, k, v, fn, plain, library
+        for label, b, s, h, p, n, chunk, with_d in SSD_CASES:
+            x = randn((b, s, h, p), dtype)
+            dt = uniform((b, s, h), 0.01, 0.2)
+            a = -uniform((h,), 0.5, 2.0)
+            bm, cm = randn((b, s, h, n), dtype), randn((b, s, h, n), dtype)
+            dsk = randn((h,), torch.float32) if with_d else None
+            fn = lambda: ssd.ssd_scan(x, dt, a, bm, cm, chunk, dsk)  # noqa: E731
+            plain = lambda: ssd.ssd_scan_plain(x, dt, a, bm, cm, chunk, dsk)  # noqa: E731
+            (y, st), (y0, st0) = fn(), plain()
+            torch.cuda.synchronize()
+            err = float((y.float() - y0.float()).abs().max())
+            state_err = float((st - st0).abs().max())
+            atol, rtol = SSD_TOL[dtype]
+            torch.testing.assert_close(
+                y.float(), y0.float(), rtol=rtol, atol=atol,
+                msg=lambda m: f"ssd_scan {label} {dtype}: y differs from "
+                f"the plain version's: {m}")
+            if dtype == torch.float32:
+                torch.testing.assert_close(
+                    st, st0, rtol=rtol, atol=atol,
+                    msg=lambda m: f"ssd_scan {label}: final state differs "
+                    f"from the plain version's: {m}")
+            del y, st, y0, st0
+            ms, call_ms, plain_ms, _ = _time_all(fn, plain, None)
+            nbytes, nops = ssd_work(b, s, h, p, n, chunk, dtype, with_d)
+            bms, by = bound(nbytes, nops, PEAK_FLOPS[dtype])
+            rows.append(dict(
+                name="ssd_scan", case=label, dtype=str(dtype)[6:],
+                shape=[b, s, h, p, n, chunk], window=None, max_abs_err=err,
+                state_err=state_err, tol="%g/%g" % SSD_TOL[dtype], ms=ms,
+                call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bms, bound_by=by))
+            del x, dt, a, bm, cm, dsk, fn, plain
+        torch.cuda.empty_cache()
+    print("# sequence kernel phase (against the plain version, tol = "
+          "atol/rtol). ms and library_ms: device time per launch, queued; "
+          "call_ms and plain_ms: time per call, back to back. library: "
+          "F.scaled_dot_product_attention(is_causal=True) on (B, H, S, D)")
+    print("kernel,case,dtype,shape,window,max_abs_err,state_err,tol,ms,"
+          "call_ms,plain_ms,library_ms,bound_ms,bound_by")
+    for r in rows:
+        shape = "x".join(str(v) for v in r["shape"])
+        lib = "" if r["library_ms"] is None else r["library_ms"]
+        print(f"{r['name']},{r['case']},{r['dtype']},{shape},"
+              f"{r['window'] or ''},{r['max_abs_err']},"
+              f"{r.get('state_err', '')},{r['tol']},{r['ms']},{r['call_ms']},"
+              f"{r['plain_ms']},{lib},{r['bound_ms']},{r['bound_by']}")
+    return rows
+
+
+# -- serve main path: zamba2-1.2b at full width ---------------------------
+
+def matmul_flop(cfg, tokens):
+    """FLOP of the weight products one forward does (2 per weight element
+    per token): Mamba2's in and out projections in every layer, the
+    shared block's attention and FFN projections once per group, and
+    the LM head. Attention's own products are K4's."""
+    from repro_torch.models import model as lm
+    from repro_torch.models.ssm import mamba_dims
+
+    di, h, n, g = mamba_dims(cfg)
+    d = cfg.d_model
+    mamba = d * (2 * di + 2 * g * n + h) + di * d
+    shared = (d * cfg.head_dim * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+              + 3 * d * cfg.d_ff)
+    groups = sum(sg.count for sg in lm.layer_plan(cfg)
+                 if sg.kind == "hybrid_group")
+    return 2 * tokens * (cfg.n_layers * mamba + groups * shared
+                         + d * cfg.vocab_size)
+
+
+def profile_prefill(fn, mm_flop):
+    """Device time of one prefill by kernel (torch.profiler's CUDA
+    events): the share of the wall time the card was busy, the time in
+    K4, K5, matrix products (and their fp32 rate, from ``mm_flop``) and
+    the rest, and the ten costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [(e.key, e.count, e.self_device_time_total / 1e3)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        print("# prefill profile: no device time in the trace: not measured")
+        return
+    groups = {"flash_attention": 0.0, "ssd_scan": 0.0, "matmul": 0.0,
+              "other": 0.0}
+    for name, _, ms in kernels:
+        if "flash_attention_kernel" in name:
+            groups["flash_attention"] += ms
+        elif "ssd_scan_kernel" in name:
+            groups["ssd_scan"] += ms
+        elif any(w in name.lower() for w in ("gemm", "cutlass", "cublas")):
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    busy = sum(groups.values())
+    print("# prefill profile (torch.profiler, one kernel-path prefill; "
+          "wall includes the profiler's overhead)")
+    mm_rate = mm_flop / (groups["matmul"] * 1e-3) if groups["matmul"] else 0.0
+    print("profile,wall_ms,device_busy_ms,busy_share,"
+          + ",".join(f"{k}_ms" for k in groups)
+          + ",matmul_tflop,matmul_tflop_per_s,matmul_share_of_fp32_peak")
+    print(f"profile,{wall * 1e3},{busy},{busy / (wall * 1e3)},"
+          + ",".join(str(v) for v in groups.values())
+          + f",{mm_flop / 1e12},{mm_rate / 1e12},"
+          f"{mm_rate / PEAK_FLOPS[torch.float32]}")
+    for name, count, ms in sorted(kernels, key=lambda k: -k[2])[:10]:
+        print(f"profile_kernel,{ms},{count},{name[:100]}")
+
+
+def serve_phase(device):
+    import contextlib
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+    from repro_torch.serve import engine
+
+    def counts():
+        return {**fa.launch_counts(), **ssd.launch_counts()}
+
+    def reset():
+        fa.reset_launch_counts()
+        ssd.reset_launch_counts()
+
+    cfg = get_config("zamba2-1.2b").replace(dtype="float32")
+    params = lm.init_model(cfg, torch.Generator(device).manual_seed(SEED),
+                           device)
+    n_params = []
+    lm.tree_map(lambda t: n_params.append(t.numel()), params)
+    toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (PREFILL_B, PREFILL_S))).to(device)
+    print("# serve: zamba2-1.2b, %d layers, d_model %d, %d parameters "
+          "(fp32), plan %s" % (cfg.n_layers, cfg.d_model, sum(n_params),
+                               [(sg.kind, sg.count) for sg in
+                                lm.layer_plan(cfg)]))
+
+    def prefill(use_kernel, tokens, c=cfg):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, _ = lm.forward(c, params, {"tokens": tokens},
+                               use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        return (logits, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated())
+
+    # One K4 launch per hybrid group (6), one K5 launch per layer (38).
+    want = {"flash_attention": sum(sg.count for sg in lm.layer_plan(cfg)
+                                   if sg.kind == "hybrid_group"),
+            "ssd_scan": cfg.n_layers}
+    reset()
+    fast, wall_k, peak_k = prefill(True, toks)
+    launches = counts()
+    if launches != want:
+        raise AssertionError(f"prefill launched {launches}; expected {want}")
+    reset()
+    slow, wall_p, peak_p = prefill(False, toks)
+    if any(counts().values()):
+        raise AssertionError(f"the plain prefill launched {counts()}")
+    want_shape = (PREFILL_B, PREFILL_S, cfg.vocab_size)
+    for name, lg in (("kernel", fast), ("plain", slow)):
+        if tuple(lg.shape) != want_shape or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{name} prefill logits: shape "
+                                 f"{tuple(lg.shape)} or not finite")
+    diff = float((fast - slow).abs().max())
+    scale = float(slow.abs().max())
+    del fast, slow
+    # A second pair in the other order: the first calls above also pay
+    # the allocator's growth and the libraries' first-use set-up.
+    wall_p2 = prefill(False, toks)[1]
+    wall_k2 = prefill(True, toks)[1]
+    print("prefill,B,S,wall_kernel_s,wall_plain_s,wall_plain_2nd_s,"
+          "wall_kernel_2nd_s,peak_kernel_bytes,peak_plain_bytes,"
+          "max_abs_dlogit,max_abs_logit,limit")
+    print(f"prefill,{PREFILL_B},{PREFILL_S},{wall_k},{wall_p},{wall_p2},"
+          f"{wall_k2},{peak_k},{peak_p},{diff},{scale},{LOGIT_REL * scale}")
+    if not diff <= LOGIT_REL * scale:
+        raise AssertionError(f"prefill logits: kernel path differs from the "
+                             f"plain path by {diff} > {LOGIT_REL} * {scale}")
+    profile_prefill(lambda: lm.forward(cfg, params, {"tokens": toks},
+                                       use_kernel=True),
+                    matmul_flop(cfg, PREFILL_B * PREFILL_S))
+
+    # Decode reads the prompt one token at a time; it must reproduce the
+    # prefill's logits (tests/test_arch_smoke.py, with no window).
+    dcfg = cfg.replace(sliding_window=0)
+    dtoks = toks[:, :DECODE_S]
+    full, wall_f, _ = prefill(True, dtoks, dcfg)
+    state = engine.init_state(dcfg, PREFILL_B, window=DECODE_S, device=device)
+    outs = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(DECODE_S):
+        pos = torch.full((PREFILL_B, 1), t, dtype=torch.int32, device=device)
+        lg, state = engine.serve_step(dcfg, params, state,
+                                      {"tokens": dtoks[:, t:t + 1],
+                                       "positions": pos})
+        outs.append(lg[:, 0])
+    torch.cuda.synchronize()
+    wall_d = time.perf_counter() - t0
+    dec = torch.stack(outs, 1)
+    derr = float((dec - full).abs().max())
+    print("decode_vs_prefill,B,S,wall_prefill_s,wall_decode_s,"
+          "max_abs_dlogit,tol")
+    print(f"decode_vs_prefill,{PREFILL_B},{DECODE_S},{wall_f},{wall_d},"
+          f"{derr},{DECODE_TOL}")
+    torch.testing.assert_close(
+        dec, full, rtol=DECODE_TOL, atol=DECODE_TOL,
+        msg=lambda m: f"decode logits differ from prefill logits: {m}")
+    del params, state, outs, dec, full, toks, dtoks
+    torch.cuda.empty_cache()
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", "zamba2-1.2b", "--batch", "4",
+                    "--prompt-len", "16", "--gen", "16"])
+    line = out.getvalue().strip().splitlines()[-1]
+    print("# greedy serving, repro_torch.launch.serve at its defaults")
+    print(line)
+    if json.loads(line)["output_shape"] != [4, 32]:
+        raise AssertionError(f"greedy serving returned {line}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -295,27 +697,47 @@ def main() -> int:
     device = torch.device("cuda")
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                     torch.cuda.get_device_name(0)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("# numerics: torch.backends.cuda.matmul.allow_tf32 = %s, "
+          "torch.backends.cudnn.allow_tf32 = %s"
+          % (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32))
 
+    t_start = time.perf_counter()
+    build_all()
+    phase_s = {}
     t0 = time.perf_counter()
-    lib, log = kernel.build()
-    print("# build: %.1f s -> %s" % (time.perf_counter() - t0, lib))
-    for line in log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
-            print("#   " + line.strip())
-
     rows = kernel_phase(kernel, device)
+    phase_s["fitmask kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     launches = main_path_phase(kernel, device)
+    phase_s["placement main path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows += seq_kernel_phase(device)
+    phase_s["sequence kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches.update(serve_phase(device))
+    phase_s["serve main path"] = time.perf_counter() - t0
+    print("# phase seconds: %s; total %.1f s" % (
+        ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()),
+        time.perf_counter() - t_start))
 
     # One entry per kernel, at its heaviest main-path case above (the
-    # single-box kernel: its largest in-grid box there).
-    heaviest = {"fitmask_multibox": ("cubes 8^3", ""), "fitmask_batched":
-                ("static 16^3", "largest"), "occupancy_counts": ("cubes 4^3", "")}
+    # single-box kernel: its largest in-grid box there; K4 and K5: the
+    # zamba2 prefill shape in fp32, the type the serve path runs).
+    heaviest = {"fitmask_multibox": ("cubes 8^3", "box_role", ""),
+                "fitmask_batched": ("static 16^3", "box_role", "largest"),
+                "occupancy_counts": ("cubes 4^3", "box_role", ""),
+                "flash_attention": ("path", "dtype", "float32"),
+                "ssd_scan": ("path", "dtype", "float32")}
     entries = []
-    for name, (case, role) in heaviest.items():
+    for name, (case, key, value) in heaviest.items():
         r = next(r for r in rows if r["name"] == name and r["case"] == case
-                 and r["box_role"] == role)
+                 and r[key] == value)
         entries.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+            name=name, route="cuda", source="src/repro_torch/csrc/"
+            + SOURCE[name], replaces=REPLACES[name],
             launches=launches[name], max_abs_err=r["max_abs_err"],
             ms=r["ms"], call_ms=r["call_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"],

@@ -1,0 +1,4 @@
+"""Model configurations of the port: those whose blocks are ported."""
+from __future__ import annotations
+
+from .base import all_configs, get_config, smoke_variant  # noqa: F401

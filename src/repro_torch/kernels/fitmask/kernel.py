@@ -18,8 +18,8 @@ kernel launch and nowhere else):
 A wrapper takes its plain version only for a tensor on the CPU. For a
 CUDA tensor it launches the kernel or raises; nothing falls back. The
 kernels are CUDA C++ in ``repro_torch/csrc/fitmask.cu``, compiled with
-``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at first use and
-bound with ctypes.
+``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at first use (by
+:func:`repro_torch.kernels._build.build`) and bound with ctypes.
 
 Bound on an H100 SXM: the functions move far more bytes than they do
 operations. ``fitmask_multibox`` reads B·X·Y·Z bool cells and writes
@@ -34,85 +34,30 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .._build import SMEM_LIMIT_BYTES, Library, stream_of
+
 Box = Tuple[int, int, int]
 
-_PKG = Path(__file__).resolve().parents[2]          # src/repro_torch
-CSRC = _PKG / "csrc" / "fitmask.cu"
-BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = "fitmask.cu"                 # in repro_torch/csrc
 
-# Shared memory one block may opt in to on sm_90 (H100/H200): 227 KB.
-# The integral image is (X+1)(Y+1)(Z+1) int32, so grids up to 37^3 fit
-# (17^3 * 4 B = 19.7 KB for the static 16^3 torus).
-SMEM_LIMIT_BYTES = 232_448
+# The integral image is (X+1)(Y+1)(Z+1) int32 in shared memory, so grids
+# up to 37^3 fit (17^3 * 4 B = 19.7 KB for the static 16^3 torus).
 # Blocks to aim for: two per SM of the H100's 132.
 _TARGET_BLOCKS = 264
 
 
-# -- build -------------------------------------------------------------
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the fitmask kernels are built "
-                           "with nvcc from repro_torch/csrc at first use")
-    return nvcc
-
-
 @functools.cache
-def build() -> Tuple[Path, str]:
-    """Compile ``csrc/fitmask.cu`` into a shared library (once per source
-    content) and return its path and the compiler's report (``-Xptxas
-    -v``: registers and shared memory per kernel; empty when the library
-    was already built)."""
-    src = CSRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    lib = BUILD_DIR / f"libfitmask-{tag}.so"
-    if lib.exists():
-        return lib, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {CSRC}:\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, proc.stdout + proc.stderr
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[0]))
+def _lib() -> Library:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fitmask_multibox_launch.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    lib.fitmask_multibox_launch.restype = i
-    lib.occupancy_counts_launch.argtypes = [p, p, i, i, p]
-    lib.occupancy_counts_launch.restype = i
-    lib.fitmask_error_string.argtypes = [i]
-    lib.fitmask_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(err: int, what: str) -> None:
-    if err:
-        msg = _lib().fitmask_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return Library(SOURCE, {
+        "fitmask_multibox_launch": [p, p, p, i, i, i, i, i, i, p],
+        "occupancy_counts_launch": [p, p, i, i, p]})
 
 
 # -- argument handling -------------------------------------------------
@@ -170,9 +115,10 @@ def _launch_multibox(occ: torch.Tensor, table: np.ndarray) -> torch.Tensor:
         return out
     check_smem((x, y, z))
     boxes = _device_boxes(table.tobytes(), occ.device)
-    _check(_lib().fitmask_multibox_launch(
-        occ.data_ptr(), boxes.data_ptr(), out.data_ptr(), bsz, x, y, z, k,
-        _boxes_per_block(bsz, k), _stream(occ)), "fitmask_multibox")
+    _lib().launch(
+        "fitmask_multibox_launch", occ.data_ptr(), boxes.data_ptr(),
+        out.data_ptr(), bsz, x, y, z, k, _boxes_per_block(bsz, k),
+        stream_of(occ))
     return out
 
 
@@ -271,9 +217,8 @@ def occupancy_counts(occ: torch.Tensor) -> torch.Tensor:
         return out
     if n == 0:
         return out.zero_()
-    _check(_lib().occupancy_counts_launch(
-        occ.data_ptr(), out.data_ptr(), bsz, n, _stream(occ)),
-        "occupancy_counts")
+    _lib().launch("occupancy_counts_launch", occ.data_ptr(), out.data_ptr(),
+                  bsz, n, stream_of(occ))
     occupancy_counts.launches += 1
     return out
 

@@ -33,6 +33,7 @@ import torch
 
 from repro_torch.core import engineconfig as _engineconfig
 from repro_torch.core import fitmask as np_engine
+from repro_torch.device import resolve_device
 
 from . import kernel as _kernel
 from . import ref as _ref
@@ -44,17 +45,6 @@ ENGINE_ENV = _engineconfig.ENGINE_ENV
 
 def _canon_boxes(boxes: Sequence[Box]) -> Tuple[Box, ...]:
     return tuple(tuple(int(v) for v in b) for b in boxes)  # type: ignore
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card. Raises ``RuntimeError`` when the card is
-    asked for (explicitly or by default) and none is present."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device: the fitmask engines run on the card unless "
-            "the caller asks for device='cpu' or engine='numpy'")
-    return dev
 
 
 class FitmaskEngine:

@@ -1,0 +1,113 @@
+"""Blockwise (flash) causal attention as a hand-written CUDA kernel for
+Hopper (K4).
+
+Replaces the Pallas kernel ``repro/kernels/flash_attention/kernel.py::
+flash_attention`` (``_flash_kernel``): causal attention with an optional
+sliding window and GQA (kv head = h // (H // KH)), an online softmax
+with fp32 running max, sum and accumulator, and positions ``arange``.
+:func:`flash_attention` launches the kernel for CUDA tensors and takes
+the plain version, :func:`flash_attention_plain` (the oracle's einsum
+and softmax), only for CPU tensors; nothing falls back. The launch
+counter is ``flash_attention.launches``.
+
+The kernel is CUDA C++ in ``repro_torch/csrc/flash_attention.cu``,
+compiled with ``nvcc`` for ``sm_90a`` at first use and bound with
+ctypes. Bound on an H100 SXM: operations. At the zamba2 prefill shape
+(B 2, S 4096, 32 heads of 64) the causal half of 4·B·H·S²·D is 0.14
+TFLOP against 268 MB of q, k, v and out, so fp32 work at the 67 TFLOP/s
+CUDA-core rate (fp32 products stay fp32, not TF32, for the 2e-6 parity
+tolerance) bounds it at 2.05 ms, and bytes at 0.08 ms.
+The design reuses each staged 64-row k/v tile for 64 q rows, keeps a
+4 x 4 score tile and a 4 x D/16 output tile per thread in registers,
+and skips k tiles that are wholly masked by the diagonal or the window.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from .._build import Library, stream_of
+from . import ref
+
+SOURCE = "flash_attention.cu"          # in repro_torch/csrc
+HEAD_DIMS = (32, 64, 128)              # the kernel's instantiations
+_TYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _lib() -> Library:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return Library(SOURCE, {
+        "flash_attention_launch": [p, p, p, p] + [i] * 9 + [p]})
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Plain version of :func:`flash_attention`: the oracle's fp32
+    einsum and softmax over the whole (S, T) score matrix."""
+    return ref.attention_reference(q, k, v, causal=causal, window=window)
+
+
+def _check_args(q, k, v) -> None:
+    if not (q.device.type == k.device.type == v.device.type == "cuda"):
+        raise ValueError("flash_attention takes q, k, v all on the CPU or "
+                         f"all on a CUDA device, got {q.device}, {k.device}, "
+                         f"{v.device}")
+    if q.dtype not in _TYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("the CUDA flash_attention takes fp32 or bf16 q, k "
+                         f"and v of one type, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("flash_attention takes q (B, S, H, D) and k, v "
+                         f"(B, T, KH, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, _, h, d = q.shape
+    kb, _, kh, kd = k.shape
+    if kb != b or kd != d or kh == 0 or h % kh:
+        raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} "
+                         "disagree on batch or head width, or H % KH != 0")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flash_attention takes head widths "
+                         f"{HEAD_DIMS}, got {d}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, T, KH, D) with H % KH == 0. Returns
+    (B, S, H, D) in q's type. Positions are ``arange``; ``window`` None
+    or <= 0 means no window. Strided inputs are copied contiguous for
+    the kernel."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_args(q, k, v)
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _lib().launch(
+        "flash_attention_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, s, t, h, kh, d, int(causal), int(window or 0),
+        _TYPES[q.dtype], stream_of(q))
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+KERNELS = (flash_attention,)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}

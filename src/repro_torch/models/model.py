@@ -1,0 +1,293 @@
+"""Full language-model assembly: embeddings -> layer stack -> final norm
+-> LM head; plus decode-state plumbing and the carrying-across of
+``repro``'s parameters.
+
+The parameters keep ``repro``'s pytree layout: a scanned segment's
+leaves carry a leading layer axis, so its ``lax.scan`` becomes a Python
+loop that indexes the stacked tensors. Heterogeneous patterns are loops
+over *groups*:
+
+  dense           : n_layers x dense (stacked)
+  hybrid (zamba2) : G x [shared_attn ; k x mamba] (stacked) + leftover
+                    mamba layers (a list); the attention block params are
+                    SHARED, applied once at the start of each group.
+
+``repro``'s ``remat`` (rematerialisation under ``jax.checkpoint``) and
+``force_unscanned`` (unrolled layers for XLA cost analysis) do not apply
+to an eager forward without autograd: the fields stay in the config and
+are ignored here. The moe, ssm (xLSTM), audio and vlm families come with
+their blocks.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from .blocks import apply_layer, init_layer, init_layer_state
+from .common import ModelConfig, Params, apply_norm, embed_init, init_norm
+
+
+# ----------------------------------------------------------------------
+# Trees of tensors
+# ----------------------------------------------------------------------
+
+def tree_map(fn: Callable, tree):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def tree_stack(trees: List):
+    """Stack a list of identically shaped trees along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def tree_index(tree, i: int):
+    """Layer ``i`` of a stacked tree (views of the stacked tensors)."""
+    return tree_map(lambda leaf: leaf[i], tree)
+
+
+# ----------------------------------------------------------------------
+# Layer plan
+# ----------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Segment:
+    kind: str          # block kind for blocks.py
+    count: int         # layers in this segment
+    scanned: bool      # stacked params, looped over the leading axis
+    group: Tuple[str, ...] = ()   # for grouped segments: kinds within group
+
+
+def layer_plan(cfg: ModelConfig) -> List[Segment]:
+    at = cfg.arch_type
+    if at == "dense":
+        return [Segment("dense", cfg.n_layers, True)]
+    if at == "hybrid":  # zamba2
+        k = cfg.shared_attn_every
+        g, rem = divmod(cfg.n_layers, k)
+        segs = [Segment("hybrid_group", g, True, ("mamba",) * k)]
+        if rem:
+            segs.append(Segment("mamba", rem, False))
+        return segs
+    raise ValueError(f"arch type {at!r} is not ported yet; repro_torch has "
+                     "the dense and hybrid stacks")
+
+
+# ----------------------------------------------------------------------
+# Init
+# ----------------------------------------------------------------------
+
+def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+               device=None) -> Params:
+    """Random parameters on ``device`` (None: the card), drawn from
+    ``generator`` (None: PyTorch's default generator for the device).
+    ``device="meta"`` gives the tree's shapes without storage."""
+    device = resolve_device(device)
+    d = cfg.d_model
+    params: Dict[str, Any] = {
+        "embed": embed_init(generator, (cfg.vocab_size, d), device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = embed_init(generator, (d, cfg.vocab_size), device)
+
+    seg_params = []
+    for seg in layer_plan(cfg):
+        if seg.kind == "hybrid_group":
+            def one(seg=seg):
+                return {f"{i}_{kind}": init_layer(cfg, generator, device, kind)
+                        for i, kind in enumerate(seg.group)}
+        else:
+            def one(seg=seg):
+                return init_layer(cfg, generator, device, seg.kind)
+        layers = [one() for _ in range(seg.count)]
+        seg_params.append(tree_stack(layers) if seg.scanned else layers)
+    params["segments"] = seg_params
+    if cfg.arch_type == "hybrid":
+        params["shared_attn"] = init_layer(cfg, generator, device,
+                                           "shared_attn")
+    params["final_norm"] = init_norm(cfg, device)
+    return params
+
+
+def params_from_numpy(cfg: ModelConfig, tree, device=None) -> Params:
+    """``repro``'s parameters (nested dicts and lists of numpy arrays, as
+    ``jax.tree_util.tree_map(np.asarray, params)`` gives them) as the
+    port's tree on ``device``. Every leaf's shape is checked against the
+    port's own ``init_model`` tree; a missing or extra key, a list of
+    another length or a leaf of another shape raises ``ValueError``."""
+    device = resolve_device(device)
+    want = init_model(cfg, device="meta")
+
+    def convert(node, ref, path):
+        if isinstance(ref, dict):
+            if not isinstance(node, dict) or set(node) != set(ref):
+                got = sorted(node) if isinstance(node, dict) else type(node)
+                raise ValueError(f"{path}: keys {got}, the port expects "
+                                 f"{sorted(ref)}")
+            return {k: convert(node[k], ref[k], f"{path}[{k!r}]")
+                    for k in ref}
+        if isinstance(ref, list):
+            if not isinstance(node, (list, tuple)) or len(node) != len(ref):
+                raise ValueError(f"{path}: expected a list of {len(ref)}")
+            return [convert(n, r, f"{path}[{i}]")
+                    for i, (n, r) in enumerate(zip(node, ref))]
+        arr = np.asarray(node)
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"{path}: shape {tuple(arr.shape)}, the port "
+                             f"expects {tuple(ref.shape)}")
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+            device=device, dtype=ref.dtype)
+
+    return convert(tree, want, "params")
+
+
+# ----------------------------------------------------------------------
+# Embedding / head
+# ----------------------------------------------------------------------
+
+def embed_tokens(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
+    return params["embed"][batch["tokens"].long()].to(cfg.activation_dtype)
+
+
+def lm_logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x @ head.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Forward (train / prefill) and decode
+# ----------------------------------------------------------------------
+
+def _positions_from(batch: Dict, seq: int, bsz: int,
+                    device: torch.device) -> torch.Tensor:
+    pos = batch.get("positions")
+    if pos is None:
+        pos = torch.arange(seq, dtype=torch.int32,
+                           device=device)[None].expand(bsz, seq)
+    return pos
+
+
+def _apply_group(cfg, group_kinds, gp, x, positions, states, window,
+                 use_kernel, shared_attn=None):
+    """One group of a grouped segment; states is a dict or None."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_states = {} if states is not None else None
+    if shared_attn is not None:
+        st = states.get("shared") if states is not None else None
+        x, ns, a = apply_layer(cfg, shared_attn, x, positions,
+                               "shared_attn", state=st, window=window,
+                               use_kernel=use_kernel)
+        aux = aux + a
+        if new_states is not None:
+            new_states["shared"] = ns
+    for i, kind in enumerate(group_kinds):
+        name = f"{i}_{kind}"
+        st = states.get(name) if states is not None else None
+        x, ns, a = apply_layer(cfg, gp[name], x, positions, kind,
+                               state=st, window=window,
+                               use_kernel=use_kernel)
+        aux = aux + a
+        if new_states is not None:
+            new_states[name] = ns
+    return x, new_states, aux
+
+
+def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
+               positions: torch.Tensor, states: Optional[List] = None,
+               window: int = 0, use_kernel: bool = False):
+    """states: list matching segments (stacked trees for scanned
+    segments); None for train/prefill-without-cache."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_states: Optional[List] = [] if states is not None else None
+    shared = params.get("shared_attn")
+
+    for si, (seg, sp) in enumerate(zip(layer_plan(cfg), params["segments"])):
+        st_seg = states[si] if states is not None else None
+        shared_for_seg = shared if seg.kind == "hybrid_group" else None
+        seg_new = []
+        for li in range(seg.count):
+            lp = tree_index(sp, li) if seg.scanned else sp[li]
+            st = None
+            if st_seg is not None:
+                st = tree_index(st_seg, li) if seg.scanned else st_seg[li]
+            if seg.kind == "hybrid_group":
+                x, ns, a = _apply_group(cfg, seg.group, lp, x, positions, st,
+                                        window, use_kernel,
+                                        shared_attn=shared_for_seg)
+            else:
+                x, ns, a = apply_layer(cfg, lp, x, positions, seg.kind,
+                                       state=st, window=window,
+                                       use_kernel=use_kernel)
+            aux_total = aux_total + a
+            seg_new.append(ns)
+        if new_states is not None:
+            new_states.append(tree_stack(seg_new) if seg.scanned else seg_new)
+
+    return x, new_states, aux_total
+
+
+def forward(cfg: ModelConfig, params: Params, batch: Dict,
+            use_kernel: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward (the prefill step). Returns (logits,
+    aux_loss). ``use_kernel`` sends attention and the SSD scan through
+    the hand-written kernels (on CUDA tensors)."""
+    x = embed_tokens(cfg, params, batch)
+    b, s = x.shape[:2]
+    positions = _positions_from(batch, s, b, x.device)
+    x, _, aux = _run_stack(cfg, params, x, positions, None,
+                           cfg.sliding_window, use_kernel)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params, x), aux
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, window: int,
+                      dtype, device=None) -> List:
+    """Per-segment decode state, stacked for scanned segments."""
+    device = resolve_device(device)
+
+    def one(kind):
+        return init_layer_state(cfg, kind, batch, window, dtype, device)
+
+    def stack(tree, count):
+        return tree_map(
+            lambda leaf: leaf.expand((count,) + leaf.shape).clone(), tree)
+
+    states: List[Any] = []
+    for seg in layer_plan(cfg):
+        if seg.kind == "hybrid_group":
+            def gstate(seg=seg):
+                g: Dict[str, Any] = {"shared": one("shared_attn")}
+                for i, kind in enumerate(seg.group):
+                    g[f"{i}_{kind}"] = one(kind)
+                return g
+            states.append(stack(gstate(), seg.count) if seg.scanned
+                          else [gstate() for _ in range(seg.count)])
+        elif seg.scanned:
+            states.append(stack(one(seg.kind), seg.count))
+        else:
+            states.append([one(seg.kind) for _ in range(seg.count)])
+    return states
+
+
+def decode_step(cfg: ModelConfig, params: Params, state: List,
+                batch: Dict) -> Tuple[torch.Tensor, List]:
+    """One-token decode. batch['tokens']: (B, 1); batch['positions']:
+    (B, 1) absolute positions. Returns (logits, new_state); the KV
+    caches inside ``state`` are updated in place."""
+    x = embed_tokens(cfg, params, batch)
+    positions = batch["positions"]
+    window = (cfg.sliding_window
+              if cfg.long_context_mode == "window" else 0)
+    x, new_state, _ = _run_stack(cfg, params, x, positions, state, window)
+    x = apply_norm(cfg, params["final_norm"], x)
+    return lm_logits(cfg, params, x), new_state

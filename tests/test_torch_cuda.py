@@ -1,6 +1,8 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
-against their plain PyTorch versions on the card, and the placement
-loop through the ``cuda`` engine against the host ``numpy`` engine.
+against their plain PyTorch versions on the card, the placement loop
+through the ``cuda`` engine against the host ``numpy`` engine, and the
+zamba2 smoke model's forward through the kernels against its plain
+path.
 Every test is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor ``repro``, so it also runs where only the
 port's requirements are installed:
@@ -11,8 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config, smoke_variant
 from repro_torch.core.allocator import make_policy
 from repro_torch.kernels.fitmask import kernel as tk
+from repro_torch.kernels.flash_attention import kernel as tfa
+from repro_torch.kernels.ssd_scan import kernel as tssd
+from repro_torch.models import model as tlm
 from repro_torch.sim.simulator import Simulator
 from repro_torch.traces.generator import TraceConfig, generate_trace
 
@@ -75,3 +81,134 @@ def test_cuda_schedules_match_numpy_on_card(card, policy, kw):
             for j in got.jobs] == \
         [(j.start, j.finish, j.dropped, j.placement_meta) for j in want.jobs]
     assert tk.launch_counts()["fitmask_multibox"] > 0
+
+
+# Tolerances (atol, rtol) of the sequence kernels against their plain
+# versions on the card: the fp32 ones differ only in the order of fp32
+# sums; bf16 inputs are compared on the bf16 outputs, one rounding (at
+# most 2^-7 of the value) apart. K4's bf16 atol covers outputs near 0
+# and stays well under the 0.02-0.04 that a long softmax average comes
+# to, so a dropped k tile cannot pass (chip_smoke.py's FA_TOL).
+FA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (4e-3, 1e-2)}
+SSD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (5e-2, 5e-2)}
+
+
+def _fa_case(seed, dtype, card):
+    rng = np.random.default_rng(seed)
+    b = int(rng.integers(1, 3))
+    kh = int(rng.choice([1, 2, 4]))
+    h = kh * int(rng.integers(1, 4))
+    d = int(rng.choice([32, 64, 128]))
+    s = int(rng.integers(1, 300))
+    window = int(rng.choice([0, 1, 7, 64, 1000]))
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(card, dtype) for shape in
+               ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    return q, k, v, window or None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_flash_attention_matches_plain_on_card(card, seed, dtype):
+    q, k, v, window = _fa_case(seed, dtype, card)
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention(q, k, v, causal=True, window=window)
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts() == {"flash_attention": 1}
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def _ssd_case(seed, dtype, card):
+    rng = np.random.default_rng(seed)
+    b, h = int(rng.integers(1, 3)), int(rng.integers(1, 5))
+    p, n = int(rng.choice([8, 32, 64])), int(rng.choice([4, 16, 64]))
+    chunk = int(rng.choice([16, 32, 64]))
+    s = chunk * int(rng.integers(1, 5))
+
+    def t(arr, ty=torch.float32):
+        return torch.from_numpy(arr.astype(np.float32)).to(card, ty)
+
+    return (t(rng.normal(size=(b, s, h, p)), dtype),
+            t(rng.uniform(0.01, 0.2, size=(b, s, h))),
+            t(-rng.uniform(0.5, 2.0, size=(h,))),
+            t(rng.normal(size=(b, s, h, n)), dtype),
+            t(rng.normal(size=(b, s, h, n)), dtype),
+            t(rng.normal(size=(h,))), chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ssd_scan_matches_plain_on_card(card, seed, dtype):
+    x, dt, a, b, c, d, chunk = _ssd_case(seed, dtype, card)
+    atol, rtol = SSD_TOL[dtype]
+    tssd.reset_launch_counts()
+    for d_skip in (d, None):
+        y, st = tssd.ssd_scan(x, dt, a, b, c, chunk=chunk, d_skip=d_skip)
+        y0, st0 = tssd.ssd_scan_plain(x, dt, a, b, c, chunk=chunk,
+                                      d_skip=d_skip)
+        torch.cuda.synchronize()
+        assert y.dtype == dtype and st.dtype == torch.float32
+        torch.testing.assert_close(y.float(), y0.float(), rtol=rtol,
+                                   atol=atol)
+        if dtype == torch.float32:
+            torch.testing.assert_close(st, st0, rtol=1e-4, atol=1e-4)
+    assert tssd.launch_counts() == {"ssd_scan": 2}
+
+
+def test_ssd_scan_refuses_a_partial_chunk(card):
+    x = torch.zeros((1, 48, 2, 8), device=card)
+    b = torch.zeros((1, 48, 2, 16), device=card)
+    dt = torch.zeros((1, 48, 2), device=card)
+    a = torch.zeros(2, device=card)
+    with pytest.raises(ValueError, match="S = 48, chunk = 32"):
+        tssd.ssd_scan(x, dt, a, b, b, chunk=32)
+
+
+def test_ssd_scan_refuses_a_chunk_beyond_shared_memory(card):
+    # A 256-step chunk at P = N = 64 needs about 470 KB of shared memory.
+    x = torch.zeros((1, 256, 1, 64), device=card)
+    dt, a = torch.zeros((1, 256, 1), device=card), torch.zeros(1, device=card)
+    with pytest.raises(RuntimeError, match="S = 256, chunk = 256"):
+        tssd.ssd_scan(x, dt, a, x, x, chunk=256)
+    # the refusal leaves no CUDA error behind for the next launch
+    y, _ = tssd.ssd_scan(x, dt, a, x, x, chunk=128)
+    assert torch.equal(y, torch.zeros_like(y))
+
+
+def _strided(t):
+    """The same values as ``t``, in a tensor that is not contiguous."""
+    return torch.cat([t, t], dim=-1)[..., :t.shape[-1]]
+
+
+def test_kernels_take_strided_inputs(card):
+    q, k, v, window = _fa_case(0, torch.float32, card)
+    torch.testing.assert_close(
+        tfa.flash_attention(*map(_strided, (q, k, v)), window=window),
+        tfa.flash_attention_plain(q, k, v, window=window),
+        rtol=1e-5, atol=1e-5)
+    x, dt, a, b, c, d, chunk = _ssd_case(0, torch.float32, card)
+    torch.testing.assert_close(
+        tssd.ssd_scan(_strided(x), dt, a, _strided(b), _strided(c),
+                      chunk=chunk, d_skip=d),
+        tssd.ssd_scan_plain(x, dt, a, b, c, chunk=chunk, d_skip=d),
+        rtol=1e-4, atol=1e-4)
+
+
+def test_smoke_forward_through_kernels_matches_plain_on_card(card):
+    cfg = smoke_variant(get_config("zamba2-1.2b"), n_layers=5)
+    params = tlm.init_model(cfg, torch.Generator(card).manual_seed(0), card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64))).to(card)
+    want, _ = tlm.forward(cfg, params, {"tokens": toks})
+    tfa.reset_launch_counts()
+    tssd.reset_launch_counts()
+    got, _ = tlm.forward(cfg, params, {"tokens": toks}, use_kernel=True)
+    torch.cuda.synchronize()
+    # two groups of (shared attention + 2 mamba) and one leftover mamba
+    assert tfa.launch_counts() == {"flash_attention": 2}
+    assert tssd.launch_counts() == {"ssd_scan": 5}
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
