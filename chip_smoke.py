@@ -11,7 +11,9 @@
 3. Fitmask kernel phase: holds K1-K3 bit-exact against their plain
    PyTorch versions on the card, at the shapes the placement loop gives
    them, and times both beside the least time the card could take (the
-   bound).
+   bound) and, where one PyTorch call computes the same function, beside
+   that call (K2: ``occ.sum``; K3: ``F.max_pool3d`` over the box, first
+   checked equal to the kernel's plane where the box fits).
 4. Placement main path: runs the eight Table 1 / Fig 3 placement
    configurations at 4096 XPUs on the 200-job trace (seed 0,
    ``target_load=1.5``) through the ``cuda`` engine, and again through
@@ -19,8 +21,9 @@
    and each fitmask kernel must have been launched by the ``cuda`` runs.
 5. Sequence kernel phase: holds K4 (flash attention) and K5 (SSD scan)
    against their plain versions in fp32 and bf16, at the zamba2 prefill
-   shapes and at edge cases, within stated tolerances, and times them
-   beside their bounds and, for K4, PyTorch's SDPA.
+   shapes and at edge cases (K5 with B and C per group, as the model
+   hands them over), within stated tolerances, and times them beside
+   their bounds, the earlier kernel's time and, for K4, PyTorch's SDPA.
 6. Serve main path, zamba2-1.2b at full width (38 layers, fp32, random
    weights from seed 0): the prefill forward at B 2, S 4096 through the
    kernels (exactly 6 K4 and 38 K5 launches) against the plain path;
@@ -207,6 +210,17 @@ def multibox_work(bsz, n, boxes):
     return nbytes, nops
 
 
+def single_box_library(occ, box):
+    """One PyTorch call computing K3's function where the box fits in the
+    grid: a max pool over the box is 0 exactly where the box is free
+    (the origins where it fits); None where the box overhangs."""
+    import torch.nn.functional as F
+
+    if max(box) > occ.shape[1]:
+        return None
+    return lambda: F.max_pool3d(occ.float()[:, None], box, stride=1)[:, 0] == 0
+
+
 def max_abs_err(got, want):
     if got.numel() == 0:
         return 0
@@ -233,8 +247,8 @@ def kernel_phase(kernel, device):
                 ("fitmask_batched",
                  lambda box=box: kernel.fitmask_batched(occ, box),
                  lambda box=box: kernel.fitmask_batched_plain(occ, box),
-                 None, [bsz, n, n, n], multibox_work(bsz, n, [box]),
-                 (role, box)))
+                 single_box_library(occ, box), [bsz, n, n, n],
+                 multibox_work(bsz, n, [box]), (role, box)))
         for (name, fn, plain, library, shape, (nbytes, nops),
              (box_role, box)) in checks:
             got, want = fn(), plain()
@@ -243,6 +257,12 @@ def kernel_phase(kernel, device):
                     or not torch.equal(got, want):
                 raise AssertionError(f"{name} on {label}: kernel differs "
                                      "from its plain version")
+            if name == "fitmask_batched" and library:
+                a, b, c = box
+                if not torch.equal(library(), got[:, :n - a + 1, :n - b + 1,
+                                                  :n - c + 1] == 1):
+                    raise AssertionError(f"{name} on {label}: max_pool3d "
+                                         "differs from the kernel's plane")
             bms, by = bound(nbytes, nops)
             call_ms = time_ms(fn)
             lib_ms = None
@@ -355,11 +375,30 @@ FA_CASES = [   # label, B, S, H, KH, D, window
     ("window 64", 2, 1024, 32, 32, 64, 64),
     ("ragged S 1000", 2, 1000, 32, 32, 64, None),
 ]
-SSD_CASES = [  # label, B, S, H, P, N, chunk, with d_skip
-    ("path", PREFILL_B, PREFILL_S, 64, 64, 64, 128, True),
-    ("single chunk", 2, 128, 64, 64, 64, 128, True),
-    ("no d_skip", 2, 1024, 64, 64, 64, 128, False),
+# label, B, S, H, G (groups of B and C), P, N, chunk, with d_skip
+SSD_CASES = [
+    ("path", PREFILL_B, PREFILL_S, 64, 1, 64, 64, 128, True),
+    ("single chunk", 2, 128, 64, 1, 64, 64, 128, True),
+    ("no d_skip", 2, 1024, 64, 1, 64, 64, 128, False),
+    ("8 groups", 2, 1024, 64, 8, 64, 64, 128, True),
 ]
+# Device ms of the earlier K4 and K5 designs (fp32 FMAs for both types;
+# K5 one block per head and batch) for the same (kernel, case, type), as
+# PERF.md records them (NVIDIA H100 80GB HBM3, 700.00 W); None where it
+# has none.
+EARLIER_MS = {
+    ("flash_attention", "path", "float32"): 6.184254760742188,
+    ("flash_attention", "path", "bfloat16"): 6.261876220703125,
+    ("flash_attention", "gqa 32:8", "float32"): 4.71387451171875,
+    ("flash_attention", "gqa 32:8", "bfloat16"): 4.6134521484375,
+    ("flash_attention", "window 64", "float32"): 0.11910143852233887,
+    ("flash_attention", "window 64", "bfloat16"): 0.11330368041992188,
+    ("flash_attention", "ragged S 1000", "float32"): 0.5162918472290039,
+    ("ssd_scan", "path", "float32"): 3.2305645751953125,
+    ("ssd_scan", "path", "bfloat16"): 3.2046929931640626,
+    ("ssd_scan", "single chunk", "float32"): 0.10183615684509277,
+    ("ssd_scan", "no d_skip", "float32"): 0.8129535675048828,
+}
 
 
 def attention_work(b, s, h, kh, d, window, dtype):
@@ -371,14 +410,15 @@ def attention_work(b, s, h, kh, d, window, dtype):
     return esz * (2 * b * s * h * d + 2 * b * s * kh * d), 4 * b * h * d * pairs
 
 
-def ssd_work(b, s, h, p, n, chunk, dtype, with_d):
-    """Bytes (x, B, C, dt, a, d read once; y and the fp32 state written
-    once) and FLOP per chunk and head: Q (Q + 1) (N + P) for the causal
-    (s <= t) half of C B^T and of the masked matrix times X, the only
-    half the function needs, plus 4 Q N P for C state^T and the state
-    update. Counted like attention_work: unmasked pairs only."""
+def ssd_work(b, s, h, g, p, n, chunk, dtype, with_d):
+    """Bytes (x, dt, a, d read once per head and B, C once per group; y
+    and the fp32 state written once) and FLOP per chunk and head:
+    Q (Q + 1) (N + P) for the causal (s <= t) half of C B^T and of the
+    masked matrix times X, the only half the function needs, plus
+    4 Q N P for C state^T and the state update. Counted like
+    attention_work: unmasked pairs only."""
     esz = torch.finfo(dtype).bits // 8
-    nbytes = (esz * b * s * h * (2 * p + 2 * n) + 4 * b * s * h
+    nbytes = (esz * b * s * (2 * h * p + 2 * g * n) + 4 * b * s * h
               + 4 * h * (2 if with_d else 1) + 4 * b * h * p * n)
     nops = ((chunk * (chunk + 1) * (n + p) + 4 * chunk * n * p)
             * b * h * (s // chunk))
@@ -442,11 +482,11 @@ def seq_kernel_phase(device):
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
                 bound_by=by))
             del q, k, v, fn, plain, library
-        for label, b, s, h, p, n, chunk, with_d in SSD_CASES:
+        for label, b, s, h, g, p, n, chunk, with_d in SSD_CASES:
             x = randn((b, s, h, p), dtype)
             dt = uniform((b, s, h), 0.01, 0.2)
             a = -uniform((h,), 0.5, 2.0)
-            bm, cm = randn((b, s, h, n), dtype), randn((b, s, h, n), dtype)
+            bm, cm = randn((b, s, g, n), dtype), randn((b, s, g, n), dtype)
             dsk = randn((h,), torch.float32) if with_d else None
             fn = lambda: ssd.ssd_scan(x, dt, a, bm, cm, chunk, dsk)  # noqa: E731
             plain = lambda: ssd.ssd_scan_plain(x, dt, a, bm, cm, chunk, dsk)  # noqa: E731
@@ -466,11 +506,11 @@ def seq_kernel_phase(device):
                     f"from the plain version's: {m}")
             del y, st, y0, st0
             ms, call_ms, plain_ms, _ = _time_all(fn, plain, None)
-            nbytes, nops = ssd_work(b, s, h, p, n, chunk, dtype, with_d)
+            nbytes, nops = ssd_work(b, s, h, g, p, n, chunk, dtype, with_d)
             bms, by = bound(nbytes, nops, PEAK_FLOPS[dtype])
             rows.append(dict(
                 name="ssd_scan", case=label, dtype=str(dtype)[6:],
-                shape=[b, s, h, p, n, chunk], window=None, max_abs_err=err,
+                shape=[b, s, h, g, p, n, chunk], window=None, max_abs_err=err,
                 state_err=state_err, tol="%g/%g" % SSD_TOL[dtype], ms=ms,
                 call_ms=call_ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bms, bound_by=by))
@@ -485,6 +525,9 @@ def seq_kernel_phase(device):
     for r in rows:
         shape = "x".join(str(v) for v in r["shape"])
         lib = "" if r["library_ms"] is None else r["library_ms"]
+        before = EARLIER_MS.get((r["name"], r["case"], r["dtype"]))
+        print(f"# earlier kernel, same case: "
+              f"{'not recorded' if before is None else f'{before} ms'}")
         print(f"{r['name']},{r['case']},{r['dtype']},{shape},"
               f"{r['window'] or ''},{r['max_abs_err']},"
               f"{r.get('state_err', '')},{r['tol']},{r['ms']},{r['call_ms']},"

@@ -94,3 +94,10 @@ class Library:
 def stream_of(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and on a 16-byte boundary, as the kernels' vector
+    loads and ``cp.async`` need: ``t`` itself where it is, else a copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()

@@ -14,12 +14,18 @@ The kernel is CUDA C++ in ``repro_torch/csrc/flash_attention.cu``,
 compiled with ``nvcc`` for ``sm_90a`` at first use and bound with
 ctypes. Bound on an H100 SXM: operations. At the zamba2 prefill shape
 (B 2, S 4096, 32 heads of 64) the causal half of 4·B·H·S²·D is 0.14
-TFLOP against 268 MB of q, k, v and out, so fp32 work at the 67 TFLOP/s
-CUDA-core rate (fp32 products stay fp32, not TF32, for the 2e-6 parity
-tolerance) bounds it at 2.05 ms, and bytes at 0.08 ms.
-The design reuses each staged 64-row k/v tile for 64 q rows, keeps a
-4 x 4 score tile and a 4 x D/16 output tile per thread in registers,
-and skips k tiles that are wholly masked by the diagonal or the window.
+TFLOP against 268 MB of q, k, v and out (fp32), so fp32 work at the 67
+TFLOP/s CUDA-core rate bounds it at 2.05 ms, and bf16 work at the 989
+TFLOP/s tensor-core rate at 0.14 ms. Both kernels take one block per
+q tile of a (batch, head), stage k/v tiles of 64 rows with ``cp.async``
+and skip k tiles that the diagonal or the window masks wholly. bf16
+runs both products on the tensor cores (``mma.sync`` m16n8k16, fp32
+accumulators; 4 warps of 32 q rows, Q's fragments held in registers, P
+fed from registers as the A operand of P·V, k/v double-buffered). fp32
+stays fp32 FMAs on the CUDA cores (no TF32: the parity tolerance is
+1e-5), register-tiled: an 8 x 4 score tile and an 8 x D/16 output tile
+per thread, fed by float4 reads of shared memory at under 0.25 loads
+per FMA.
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from typing import Optional
 
 import torch
 
-from .._build import Library, stream_of
+from .._build import Library, aligned, stream_of
 from . import ref
 
 SOURCE = "flash_attention.cu"          # in repro_torch/csrc
@@ -84,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the kernel."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (aligned(t) for t in (q, k, v))
     _check_args(q, k, v)
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]

@@ -106,29 +106,31 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     conv_out = F.silu(conv_out.float()).to(x.dtype)
     xs, bs, cs = torch.split(conv_out, [di, g * n, g * n], dim=-1)
     xs = xs.reshape(b, s, h, hp)
-    # group-broadcast B, C to heads
-    bs = torch.repeat_interleave(bs.reshape(b, s, g, n), h // g, dim=2)
-    cs = torch.repeat_interleave(cs.reshape(b, s, g, n), h // g, dim=2)
+    bs, cs = bs.reshape(b, s, g, n), cs.reshape(b, s, g, n)
     dt = F.softplus(dt_pre.float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())
 
-    if state is None:
-        if use_kernel:
-            # The kernel path passes the configured chunk unchanged, as
-            # repro does: S must be a multiple of it (ssd_scan raises).
-            y, _ = ssd_ops.ssd_scan(xs, dt, a, bs, cs, chunk=cfg.ssm_chunk,
-                                    d_skip=p["d_skip"])
-        else:
+    if state is None and use_kernel:
+        # The kernel reads B and C per group. It takes the configured
+        # chunk unchanged, as repro does: S must be a multiple of it
+        # (ssd_scan raises).
+        y, _ = ssd_ops.ssd_scan(xs, dt, a, bs, cs, chunk=cfg.ssm_chunk,
+                                d_skip=p["d_skip"])
+    else:
+        # group-broadcast B, C to heads
+        bs = torch.repeat_interleave(bs, h // g, dim=2)
+        cs = torch.repeat_interleave(cs, h // g, dim=2)
+        if state is None:
             # pick the largest chunk that divides S
             chunk = max(c for c in (cfg.ssm_chunk, 64, 32, 16, 8, 4, 2, 1)
                         if s % c == 0 and c <= s)
             y, _ = ssd.ssd_reference(xs, dt, a, bs, cs, chunk=chunk,
                                      d_skip=p["d_skip"])
-    else:
-        y, new_ssm = ssd.ssd_step(state["ssm"], xs[:, 0], dt[:, 0],
-                                  a, bs[:, 0], cs[:, 0], p["d_skip"])
-        y = y[:, None]
-        new_state["ssm"] = new_ssm
+        else:
+            y, new_ssm = ssd.ssd_step(state["ssm"], xs[:, 0], dt[:, 0],
+                                      a, bs[:, 0], cs[:, 0], p["d_skip"])
+            y = y[:, None]
+            new_state["ssm"] = new_ssm
 
     y = y.reshape(b, s, di)
     y = _gated_rmsnorm(y, z, p["norm_scale"])

@@ -122,6 +122,37 @@ def test_flash_attention_matches_plain_on_card(card, seed, dtype):
                                atol=atol)
 
 
+# Tile edges of the K4 kernels (64 q rows a block in fp32, 16 a warp in
+# bf16; 64-key tiles): S below one tile and one past a tile, ragged S,
+# head widths 32 and 128 with GQA 4:1, and the narrowest windows.
+FA_EDGES = [  # B, S, H, KH, D, window
+    (1, 10, 2, 2, 64, None),
+    (2, 1000, 8, 2, 32, None),
+    (1, 4097, 4, 1, 128, None),
+    (1, 1000, 4, 1, 128, None),
+    (1, 300, 4, 1, 64, 1),
+    (1, 1000, 4, 4, 32, 64),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FA_EDGES)
+def test_flash_attention_tile_edges_on_card(card, case, dtype):
+    b, s, h, kh, d, window = case
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(card, dtype) for shape in
+               ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention(q, k, v, causal=True, window=window)
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts() == {"flash_attention": 1}
+    atol, rtol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
 def _ssd_case(seed, dtype, card):
     rng = np.random.default_rng(seed)
     b, h = int(rng.integers(1, 3)), int(rng.integers(1, 5))
@@ -157,6 +188,75 @@ def test_ssd_scan_matches_plain_on_card(card, seed, dtype):
         if dtype == torch.float32:
             torch.testing.assert_close(st, st0, rtol=1e-4, atol=1e-4)
     assert tssd.launch_counts() == {"ssd_scan": 2}
+
+
+def _ssd_inputs(rng, b, s, h, g, p, n, dtype, card):
+    def t(arr, ty=torch.float32):
+        return torch.from_numpy(arr.astype(np.float32)).to(card, ty)
+
+    return (t(rng.normal(size=(b, s, h, p)), dtype),
+            t(rng.uniform(0.01, 0.2, size=(b, s, h))),
+            t(-rng.uniform(0.5, 2.0, size=(h,))),
+            t(rng.normal(size=(b, s, g, n)), dtype),
+            t(rng.normal(size=(b, s, g, n)), dtype),
+            t(rng.normal(size=(h,))))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_few_blocks_on_card(card, dtype):
+    """Batch 1 and two heads: 2 blocks a chunk, far fewer than the SMs."""
+    x, dt, a, b, c, d = _ssd_inputs(np.random.default_rng(20), 1, 512, 2,
+                                    2, 64, 64, dtype, card)
+    tssd.reset_launch_counts()
+    y, st = tssd.ssd_scan(x, dt, a, b, c, chunk=128, d_skip=d)
+    y0, st0 = tssd.ssd_scan_plain(x, dt, a, b, c, chunk=128, d_skip=d)
+    torch.cuda.synchronize()
+    assert tssd.launch_counts() == {"ssd_scan": 1}
+    atol, rtol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), y0.float(), rtol=rtol, atol=atol)
+    if dtype == torch.float32:
+        torch.testing.assert_close(st, st0, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_scan_sizes_off_the_tile_on_card(card):
+    """P and N that are not multiples of 4 take the 1 x 1 tile code."""
+    x, dt, a, b, c, d = _ssd_inputs(np.random.default_rng(23), 2, 96, 3,
+                                    3, 6, 5, torch.float32, card)
+    y, st = tssd.ssd_scan(x, dt, a, b, c, chunk=12, d_skip=d)
+    y0, st0 = tssd.ssd_scan_plain(x, dt, a, b, c, chunk=12, d_skip=d)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st0, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_ssd_scan_grouped_bc_on_card(card, groups):
+    """B and C per group against the plain version on the same values
+    broadcast to the 4 heads."""
+    x, dt, a, b, c, d = _ssd_inputs(np.random.default_rng(21 + groups), 2,
+                                    256, 4, groups, 32, 16, torch.float32,
+                                    card)
+    y, st = tssd.ssd_scan(x, dt, a, b, c, chunk=64, d_skip=d)
+    bh, ch = (torch.repeat_interleave(t, 4 // groups, dim=2) for t in (b, c))
+    y0, st0 = tssd.ssd_scan_plain(x, dt, a, bh, ch, chunk=64, d_skip=d)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st0, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_scan_path_chunk_fits_and_a_longer_one_is_refused(card):
+    """A block keeps one chunk's B, C and masked matrix in shared memory
+    and its y in registers: chunk 128 fits at P = N = 64, chunk 256 is
+    refused with the sizes in the message."""
+    x, dt, a, b, c, d = _ssd_inputs(np.random.default_rng(22), 1, 512, 2,
+                                    1, 64, 64, torch.float32, card)
+    y, st = tssd.ssd_scan(x, dt, a, b, c, chunk=128, d_skip=d)
+    y0, st0 = tssd.ssd_scan_plain(x, dt, a, b, c, chunk=128, d_skip=d)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, y0, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st, st0, rtol=1e-4, atol=1e-4)
+    with pytest.raises(RuntimeError, match="S = 512, chunk = 256"):
+        tssd.ssd_scan(x, dt, a, b, c, chunk=256, d_skip=d)
 
 
 def test_ssd_scan_refuses_a_partial_chunk(card):

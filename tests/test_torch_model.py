@@ -153,6 +153,43 @@ def test_forward_matches(models, use_kernel):
     _close(got, want)
 
 
+@pytest.fixture(scope="module")
+def grouped():
+    """The smoke model with B and C shared by groups of heads: two
+    groups of the 16 Mamba2 heads, in both packages."""
+    jcfg = jsmoke_variant(jget_config("zamba2-1.2b")).replace(n_ssm_groups=2)
+    cfg = smoke_variant(get_config("zamba2-1.2b")).replace(n_ssm_groups=2)
+    jparams = jlm.init_model(jcfg, jax.random.PRNGKey(1))
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    return jcfg, jparams, cfg, tlm.params_from_numpy(cfg, tree, CPU)
+
+
+@pytest.mark.parametrize("use_kernel", [False, True])
+def test_mamba2_forward_with_groups_matches(grouped, use_kernel):
+    """The kernel path hands ssd_scan B and C per group, the plain path
+    broadcasts them to the heads; both match repro's layer."""
+    jcfg, jparams, cfg, params = grouped
+    assert tssm.mamba_dims(cfg)[1:] == (16, 16, 2)
+    x = np.random.default_rng(8).normal(size=(2, 32, cfg.d_model))
+    jp = jax.tree_util.tree_map(lambda l: l[0],
+                                jparams["segments"][0]["0_mamba"]["mixer"])
+    tp = tlm.tree_index(params["segments"][0]["0_mamba"]["mixer"], 0)
+    want, _ = jssm.mamba2_forward(jcfg, jp, jnp.array(x, jnp.float32),
+                                  use_kernel=use_kernel)
+    got, _ = tssm.mamba2_forward(cfg, tp, _t(x), use_kernel=use_kernel)
+    _close(got, want)
+
+
+def test_forward_with_groups_matches(grouped):
+    jcfg, jparams, cfg, params = grouped
+    toks = _tokens(cfg, 2, 32, seed=9)
+    want, _ = jlm.forward(jcfg, jparams, {"tokens": jnp.array(toks)},
+                          use_kernel=True)
+    got, _ = tlm.forward(cfg, params, {"tokens": torch.from_numpy(toks)},
+                         use_kernel=True)
+    _close(got, want)
+
+
 def test_decode_steps_match(models):
     jcfg, jparams, cfg, params = models
     b, steps = 2, 8

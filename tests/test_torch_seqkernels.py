@@ -144,6 +144,40 @@ def test_ssd_plain_without_d_skip_matches_pallas():
     np.testing.assert_allclose(_f32(st), _f32(sk), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_ssd_scan_grouped_bc_matches_pallas(groups):
+    """B and C per group, (B, S, G, N), through the port's wrapper on the
+    CPU, against the Pallas kernel in interpret mode on the same values
+    broadcast to the 4 heads with np.repeat: y and the final state within
+    1e-5."""
+    rng = np.random.default_rng(10 + groups)
+    bsz, s, h, p, n, chunk = 2, 64, 4, 8, 16, 16
+    x = rng.normal(size=(bsz, s, h, p))
+    dt = rng.uniform(0.01, 0.2, size=(bsz, s, h))
+    a = -rng.uniform(0.5, 2.0, size=(h,))
+    b = rng.normal(size=(bsz, s, groups, n))
+    c = rng.normal(size=(bsz, s, groups, n))
+    d = rng.normal(size=(h,))
+    j = [jnp.array(v, jnp.float32) for v in
+         (x, dt, a, np.repeat(b, h // groups, axis=2),
+          np.repeat(c, h // groups, axis=2), d)]
+    t = [torch.from_numpy(v.astype(np.float32)) for v in (x, dt, a, b, c, d)]
+    yk, sk = ssd_kernel.ssd_scan_kernel(*j[:5], d_skip=j[5], chunk=chunk,
+                                        interpret=True)
+    y, st = tssd_ops.ssd_scan(*t[:5], chunk=chunk, d_skip=t[5])
+    assert y.shape == (bsz, s, h, p) and st.shape == (bsz, h, p, n)
+    np.testing.assert_allclose(_f32(y), _f32(yk), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(_f32(st), _f32(sk), rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_scan_refuses_heads_not_divisible_by_groups():
+    x = torch.zeros((1, 32, 4, 8))
+    b = torch.zeros((1, 32, 3, 16))
+    with pytest.raises(ValueError, match="H % G == 0: H = 4"):
+        tssd.ssd_scan(x, torch.zeros((1, 32, 4)), torch.zeros(4), b, b,
+                      chunk=16)
+
+
 def test_ssd_chunk_must_divide_sequence():
     x = torch.zeros((1, 48, 2, 4))
     b = torch.zeros((1, 48, 2, 8))
