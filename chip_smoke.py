@@ -8,12 +8,16 @@
 2. Builds the three CUDA sources of ``src/repro_torch/csrc`` (fitmask,
    flash attention, SSD scan) with nvcc for sm_90a, one nvcc process per
    source, all started together, and prints each ``-Xptxas -v`` report.
-3. Fitmask kernel phase: holds K1-K3 bit-exact against their plain
+3. Fitmask kernel phase: prints the card's floor for one launch (an
+   empty kernel, queued), then holds K1-K3 bit-exact against their plain
    PyTorch versions on the card, at the shapes the placement loop gives
-   them, and times both beside the least time the card could take (the
-   bound) and, where one PyTorch call computes the same function, beside
-   that call (K2: ``occ.sum``; K3: ``F.max_pool3d`` over the box, first
-   checked equal to the kernel's plane where the box fits).
+   them and at the bit-row kernel's edges (grids of 38^3 and 64^3, rows
+   of 64 cells with boxes of 1, 63, 64 and 65 along z, rows of 3, 5 and
+   13 cells, a batch that starts off a 16-byte boundary), and times both
+   beside the least time the card could take (the bound) and, where one
+   PyTorch call computes the same function, beside that call (K2:
+   ``occ.sum``; K3: ``F.max_pool3d`` over the box, first checked equal
+   to the kernel's plane where the box fits).
 4. Placement main path: runs the eight Table 1 / Fig 3 placement
    configurations at 4096 XPUs on the 200-job trace (seed 0,
    ``target_load=1.5``) through the ``cuda`` engine, and again through
@@ -109,40 +113,68 @@ def all_shapes(n):
 
 
 def kernel_cases(rng):
-    """(label, B, n, boxes) at the placement loop's shapes, plus boxes
-    larger than the grid and K = 0."""
+    """(label, B, (X, Y, Z), boxes, offset) at the placement loop's
+    shapes, plus boxes larger than the grid, K = 0, grids up to 64^3,
+    rows of 64 cells with boxes of 1, 63, 64 and 65 along z, rows whose
+    length is off the 16-byte load (Z 3, 5, 13), and a batch that starts
+    one grid into its storage (``offset``: ``occ[1:]``, not 16-byte
+    aligned)."""
     s16 = all_shapes(16)
     s8 = all_shapes(8)
     pick16 = sorted(s16[i] for i in rng.choice(len(s16), 51, replace=False))
     pick8 = sorted(s8[i] for i in rng.choice(len(s8), 282, replace=False))
     return [
-        ("static 16^3", 1, 16, pick16),
-        ("cubes 4^3", 64, 4, all_shapes(4)),
-        ("cubes 2^3", 512, 2, all_shapes(2)),
-        ("cubes 8^3", 8, 8, pick8),
-        ("oversize", 4, 4, [(5, 1, 1), (1, 6, 1), (1, 1, 9), (4, 4, 4),
-                            (2, 3, 4), (17, 17, 17)]),
-        ("K=0", 2, 16, []),
+        ("static 16^3", 1, (16, 16, 16), pick16, False),
+        ("cubes 4^3", 64, (4, 4, 4), all_shapes(4), False),
+        ("cubes 2^3", 512, (2, 2, 2), all_shapes(2), False),
+        ("cubes 8^3", 8, (8, 8, 8), pick8, False),
+        ("oversize", 4, (4, 4, 4), [(5, 1, 1), (1, 6, 1), (1, 1, 9),
+                                    (4, 4, 4), (2, 3, 4), (17, 17, 17)],
+         False),
+        ("K=0", 2, (16, 16, 16), [], False),
+        ("38^3", 1, (38, 38, 38), [(1, 1, 1), (5, 7, 3), (20, 1, 37),
+                                   (38, 38, 38), (39, 1, 1)], False),
+        ("64^3", 1, (64, 64, 64), [(1, 1, 1), (3, 5, 7), (64, 1, 1),
+                                   (1, 1, 63), (10, 20, 65), (64, 64, 64)],
+         False),
+        ("Z 64 edges", 4, (6, 5, 64), [(1, 1, 1), (2, 1, 63), (1, 2, 64),
+                                       (1, 1, 65), (3, 3, 2)], False),
+        ("Z 3", 8, (7, 6, 3), all_shapes(3), False),
+        ("Z 5", 8, (5, 5, 5), all_shapes(5), False),
+        ("Z 13", 2, (9, 4, 13), [(1, 1, 1), (2, 3, 4), (9, 4, 13),
+                                 (3, 2, 12), (1, 1, 14)], False),
+        ("offset Z 3", 5, (4, 3, 3), all_shapes(3), True),
     ]
 
 
-def single_boxes(n, boxes):
+def single_boxes(dims, boxes):
     """The boxes the single-box kernel is checked on in one case: the
     first candidate, the largest that fits in the grid, and one that
     overhangs it, keyed by role."""
-    fits = [b for b in boxes if max(b) <= n]
-    picks = {"first": boxes[0], "overhang": (2, 1, n + 1)}
+    fits = [b for b in boxes if all(e <= d for e, d in zip(b, dims))]
+    picks = {"first": boxes[0], "overhang": (2, 1, dims[2] + 1)}
     if fits:
         picks["largest"] = max(fits, key=lambda b: (b[0] * b[1] * b[2], b))
     return picks
 
 
-def occupancy(rng, bsz, n, device):
-    """Grids from empty to about 60 % occupied, one density per grid."""
-    dens = rng.uniform(0.0, 0.6, size=(bsz, 1, 1, 1))
+def occupancy(rng, bsz, dims, device, offset=False):
+    """Grids from empty to about 60 % occupied, one density per grid;
+    with ``offset``, a view that starts one grid into its storage."""
+    extra = int(offset)
+    dens = rng.uniform(0.0, 0.6, size=(bsz + extra, 1, 1, 1))
     dens[0] = 0.0
-    occ = rng.random((bsz, n, n, n)) < dens
-    return torch.from_numpy(occ).to(device)
+    occ = rng.random((bsz + extra,) + tuple(dims)) < dens
+    return torch.from_numpy(occ).to(device)[extra:]
+
+
+def kernel_inputs(device):
+    """Each case of :func:`kernel_cases` with its seeded grids on
+    ``device``: (label, B, dims, boxes, occ)."""
+    rng = np.random.default_rng(SEED)
+    for label, bsz, dims, boxes, offset in kernel_cases(rng):
+        yield label, bsz, dims, boxes, occupancy(rng, bsz, dims, device,
+                                                 offset)
 
 
 def reps_for(fn, budget_ms=400.0):
@@ -198,15 +230,18 @@ def bound(nbytes, nops, ops_per_s=INT32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def multibox_work(bsz, n, boxes):
+def multibox_work(bsz, dims, boxes):
     """Bytes moved (bool grids in, box table in, int32 planes out) and
-    integer operations (three prefix adds per image cell, eight adds and
-    a compare per in-bounds origin)."""
-    cells = n ** 3
+    integer operations (three prefix adds per integral-image cell, eight
+    adds and a compare per in-bounds origin: the function's work as the
+    reference computes it)."""
+    x, y, z = dims
+    cells = x * y * z
     nbytes = bsz * cells + 12 * len(boxes) + 4 * bsz * len(boxes) * cells
-    inb = sum(max(n - a + 1, 0) * max(n - b + 1, 0) * max(n - c + 1, 0)
+    inb = sum(max(x - a + 1, 0) * max(y - b + 1, 0) * max(z - c + 1, 0)
               for a, b, c in boxes)
-    nops = (3 * (n + 1) ** 3 * bsz if boxes else 0) + 8 * bsz * inb
+    image = (x + 1) * (y + 1) * (z + 1)
+    nops = (3 * image * bsz if boxes else 0) + 8 * bsz * inb
     return nbytes, nops
 
 
@@ -216,7 +251,7 @@ def single_box_library(occ, box):
     (the origins where it fits); None where the box overhangs."""
     import torch.nn.functional as F
 
-    if max(box) > occ.shape[1]:
+    if any(e > d for e, d in zip(box, occ.shape[1:])):
         return None
     return lambda: F.max_pool3d(occ.float()[:, None], box, stride=1)[:, 0] == 0
 
@@ -227,28 +262,36 @@ def max_abs_err(got, want):
     return int((got.long() - want.long()).abs().max())
 
 
+def launch_floor_ms():
+    """The card's device time for one launch of an empty kernel
+    (``torch.cuda._sleep(0)``), queued as :func:`device_ms` queues."""
+    def fn():
+        torch.cuda._sleep(0)
+    return device_ms(fn, time_ms(fn))
+
+
 def kernel_phase(kernel, device):
-    rng = np.random.default_rng(SEED)
+    print(f"launch_floor_ms,{launch_floor_ms()}")
     rows = []
-    for label, bsz, n, boxes in kernel_cases(rng):
-        occ = occupancy(rng, bsz, n, device)
+    for label, bsz, dims, boxes, occ in kernel_inputs(device):
+        cells = dims[0] * dims[1] * dims[2]
         checks = [
             ("fitmask_multibox", lambda: kernel.fitmask_multibox(occ, boxes),
              lambda: kernel.fitmask_multibox_plain(occ, boxes), None,
-             [bsz, len(boxes), n, n, n], multibox_work(bsz, n, boxes),
+             [bsz, len(boxes), *dims], multibox_work(bsz, dims, boxes),
              ("", None)),
             ("occupancy_counts", lambda: kernel.occupancy_counts(occ),
              lambda: kernel.occupancy_counts_plain(occ),
-             lambda: occ.sum((1, 2, 3)), [bsz, n, n, n],
-             (bsz * n ** 3 + 4 * bsz, bsz * n ** 3), ("", None)),
+             lambda: occ.sum((1, 2, 3)), [bsz, *dims],
+             (bsz * cells + 4 * bsz, bsz * cells), ("", None)),
         ]
-        for role, box in (single_boxes(n, boxes) if boxes else {}).items():
+        for role, box in (single_boxes(dims, boxes) if boxes else {}).items():
             checks.append(
                 ("fitmask_batched",
                  lambda box=box: kernel.fitmask_batched(occ, box),
                  lambda box=box: kernel.fitmask_batched_plain(occ, box),
-                 single_box_library(occ, box), [bsz, n, n, n],
-                 multibox_work(bsz, n, [box]), (role, box)))
+                 single_box_library(occ, box), [bsz, *dims],
+                 multibox_work(bsz, dims, [box]), (role, box)))
         for (name, fn, plain, library, shape, (nbytes, nops),
              (box_role, box)) in checks:
             got, want = fn(), plain()
@@ -259,8 +302,9 @@ def kernel_phase(kernel, device):
                                      "from its plain version")
             if name == "fitmask_batched" and library:
                 a, b, c = box
-                if not torch.equal(library(), got[:, :n - a + 1, :n - b + 1,
-                                                  :n - c + 1] == 1):
+                x, y, z = dims
+                if not torch.equal(library(), got[:, :x - a + 1, :y - b + 1,
+                                                  :z - c + 1] == 1):
                     raise AssertionError(f"{name} on {label}: max_pool3d "
                                          "differs from the kernel's plane")
             bms, by = bound(nbytes, nops)

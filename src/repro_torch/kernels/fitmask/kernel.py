@@ -6,7 +6,7 @@ launch counter (``<wrapper>.launches``, a plain int bumped once per
 kernel launch and nowhere else):
 
 * :func:`fitmask_multibox` — all K candidate boxes of a placement step
-  from one integral image per grid. Replaces the Pallas kernel
+  in one launch. Replaces the Pallas kernel
   ``repro/kernels/fitmask/kernel.py::fitmask_multibox``
   (``_fitmask_multibox_kernel``).
 * :func:`fitmask_batched` — one box; a launch of the same CUDA kernel
@@ -21,20 +21,25 @@ kernels are CUDA C++ in ``repro_torch/csrc/fitmask.cu``, compiled with
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at first use (by
 :func:`repro_torch.kernels._build.build`) and bound with ctypes.
 
-Bound on an H100 SXM: the functions move far more bytes than they do
-operations. ``fitmask_multibox`` reads B·X·Y·Z bool cells and writes
-B·K·X·Y·Z int32 cells — about 4 bytes per output cell over 3.35 TB/s —
-against about eight integer operations per output cell. The design keeps
-the (X+1)(Y+1)(Z+1) int32 integral image in shared memory (built once
-per block, never written to device memory) and stores every output
-plane with consecutive threads on consecutive cells. ``occupancy_counts``
-reads each cell once and writes one int32 per grid.
+Bound on an H100 SXM: ``fitmask_multibox`` reads B·X·Y·Z bool cells and
+writes B·K·X·Y·Z int32 cells, about 4 bytes per output cell over
+3.35 TB/s against a few integer operations, so it is bound by bytes; at
+the placement loop's smallest shapes (one 16³ grid, one box) the card's
+time for one launch is the floor. The kernel keeps each (x, y) row of a
+grid as one 64-bit word of occupancy bits in shared memory (a 16³ grid
+is 2 KB) and answers a box from the OR of the a·b row words it covers,
+shifted along z by doubling: one barrier after the load, and every
+output plane stored as consecutive 16-byte chunks.
+:func:`launch_plan` cuts the (grid, box, x, y) items into blocks and
+checks the limit: Z ≤ 64 (a row is one word) and one grid's row words
+with a block's staging words within a block's shared memory.
+``occupancy_counts`` reads each cell once and writes one int32 per grid.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,17 +51,103 @@ Box = Tuple[int, int, int]
 
 SOURCE = "fitmask.cu"                 # in repro_torch/csrc
 
-# The integral image is (X+1)(Y+1)(Z+1) int32 in shared memory, so grids
-# up to 37^3 fit (17^3 * 4 B = 19.7 KB for the static 16^3 torus).
-# Blocks to aim for: two per SM of the H100's 132.
-_TARGET_BLOCKS = 264
+# Threads a block, one item a thread: 256, or 128 where 256 already
+# gives a block to each of the H100's 132 SMs or where a grid has fewer
+# than 128 rows (smaller blocks then spread the same work over more
+# SMs; a 16^3 grid's 256 rows are loaded best by 256 threads at once).
+THREADS = 256
+_SMS = 132
+# Largest row along z: one row of the grid is one 64-bit word.
+MAX_Z = 64
+# How an item ORs the a x b row words its box covers (csrc/fitmask.cu's
+# OrMode): a * b loads; a loads, a barrier and b loads through shared
+# memory; a loads and b along y across the lanes of a warp, where a warp
+# holds whole rows of items (32 % Y == 0).
+OR_MODES = ("direct", "staged", "shuffle")
+# Boxes of at most this many rows take the direct OR where the shuffle
+# does not apply: there it beats the staged OR's extra barrier.
+_DIRECT_ROWS = 16
+
+
+class Plan(NamedTuple):
+    """How one multi-box launch cuts its work. The items are the
+    (grid, box, x, y) rows of the output, in its order; a unit is the Y
+    items of one (grid, box, x). A block takes ``gpb`` whole grids (when
+    a grid has fewer than ``upb`` units) or ``upb`` units of one grid;
+    ``bpg`` blocks share a group of grids, and the launch is a
+    ``bpg`` × ceil(B / ``gpb``) grid of blocks."""
+    threads: int
+    gpb: int
+    bpg: int
+    upb: int
+    blocks: int
+    smem: int
+    mode: str
+
+
+def check_grid(dims: Sequence[int]) -> int:
+    """Shared-memory bytes the kernel may need for a grid of these
+    dimensions: its X·Y 64-bit row words and two staging words for each
+    item of the largest block. Raises ``ValueError`` when Z exceeds 64
+    (a row is one word) or when that exceeds what one block can use."""
+    x, y, z = (int(d) for d in dims)
+    if z > MAX_Z:
+        raise ValueError(
+            f"grid {x}x{y}x{z}: the kernel keeps each (x, y) row as one "
+            f"64-bit word, so Z must be at most {MAX_Z}")
+    smem = 8 * x * y + 16 * max(THREADS, y)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"grid {x}x{y}x{z}: its row words and a block's staging words "
+            f"need {smem} bytes of shared memory; a block holds at most "
+            f"{SMEM_LIMIT_BYTES}")
+    return smem
+
+
+def launch_plan(bsz: int, x: int, y: int, z: int, table: np.ndarray,
+                mode: str = "") -> Plan:
+    """Blocks and shared memory for B grids of X×Y×Z and the (K, 3) box
+    ``table``, with the OR ``mode``. By default: ``shuffle`` where
+    32 % Y == 0; elsewhere ``direct`` when no box that fits covers more
+    than 16 rows (a·b), else ``staged``. Raises ``ValueError`` beyond
+    :func:`check_grid`'s limit."""
+    check_grid((x, y, z))
+    k = len(table)
+    if not mode and 32 % y == 0:
+        mode = "shuffle"
+    elif not mode:
+        rows = [a * b for a, b, _ in table.tolist() if a <= x and b <= y]
+        mode = "direct" if max(rows, default=0) <= _DIRECT_ROWS else "staged"
+    if mode == "shuffle" and 32 % y:
+        raise ValueError(f"the shuffle OR needs 32 % Y == 0, got Y = {y}")
+    kx = k * x
+    if kx >= 1 << 23:    # the kernel's float-reciprocal division
+        raise ValueError(f"K * X = {kx} (K {k}, X {x}): one launch takes "
+                         f"K * X below 2^23")
+
+    def plan(threads):
+        upb = max(1, threads // y)
+        gpb = max(1, upb // kx)
+        bpg = 1 if gpb > 1 else -(-kx // upb)
+        items = min(upb, gpb * kx) * y
+        smem = 8 * (gpb * x * y + (2 if mode == "staged" else 1) * items)
+        return Plan(threads, gpb, bpg, upb, -(-bsz // gpb) * bpg, smem, mode)
+
+    p = plan(THREADS)
+    if p.blocks >= _SMS or x * y < THREADS // 2:
+        p = plan(THREADS // 2)
+    if p.blocks // p.bpg > 65535:   # the launch's second grid dimension
+        raise ValueError(f"B = {bsz} grids of {x}x{y}x{z} with K {k}: "
+                         f"{p.blocks // p.bpg} groups of grids, at most "
+                         f"65535 a launch")
+    return p
 
 
 @functools.cache
 def _lib() -> Library:
     p, i = ctypes.c_void_p, ctypes.c_int
     return Library(SOURCE, {
-        "fitmask_multibox_launch": [p, p, p, i, i, i, i, i, i, p],
+        "fitmask_multibox_launch": [p, p, p] + [i] * 11 + [p],
         "occupancy_counts_launch": [p, p, i, i, p]})
 
 
@@ -70,19 +161,6 @@ def box_table(boxes) -> np.ndarray:
     return arr.astype(np.int32)
 
 
-def check_smem(dims: Sequence[int]) -> int:
-    """Shared-memory bytes of a grid's integral image; raises
-    ``ValueError`` when it exceeds what one block can use."""
-    x, y, z = (int(d) for d in dims)
-    smem = (x + 1) * (y + 1) * (z + 1) * 4
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"grid {x}x{y}x{z} needs a {smem}-byte int32 integral image; "
-            f"the kernel keeps it in shared memory, which holds at most "
-            f"{SMEM_LIMIT_BYTES} bytes a block (grids up to 37^3)")
-    return smem
-
-
 def _cuda_occ(occ: torch.Tensor) -> torch.Tensor:
     if occ.device.type != "cuda":
         raise ValueError(f"fitmask kernels take CPU or CUDA tensors, "
@@ -94,11 +172,6 @@ def _cuda_occ(occ: torch.Tensor) -> torch.Tensor:
     return occ
 
 
-def _boxes_per_block(bsz: int, k: int) -> int:
-    groups = min(k, max(1, -(-_TARGET_BLOCKS // bsz)))
-    return max(-(-k // groups), -(-k // 65535))
-
-
 @functools.lru_cache(maxsize=256)
 def _device_boxes(table: bytes, device: torch.device) -> torch.Tensor:
     """The (K, 3) int32 box table on the card, uploaded once per distinct
@@ -107,18 +180,20 @@ def _device_boxes(table: bytes, device: torch.device) -> torch.Tensor:
         -1, 3).to(device)
 
 
-def _launch_multibox(occ: torch.Tensor, table: np.ndarray) -> torch.Tensor:
+def _launch_multibox(occ: torch.Tensor, table: np.ndarray,
+                     plan: Plan = None) -> torch.Tensor:
     bsz, x, y, z = occ.shape
     k = len(table)
     out = torch.empty((bsz, k, x, y, z), dtype=torch.int32, device=occ.device)
     if k == 0 or out.numel() == 0:
         return out
-    check_smem((x, y, z))
+    plan = plan or launch_plan(bsz, x, y, z, table)
     boxes = _device_boxes(table.tobytes(), occ.device)
     _lib().launch(
         "fitmask_multibox_launch", occ.data_ptr(), boxes.data_ptr(),
-        out.data_ptr(), bsz, x, y, z, k, _boxes_per_block(bsz, k),
-        stream_of(occ))
+        out.data_ptr(), bsz, x, y, z, k, plan.gpb, plan.bpg, plan.upb,
+        plan.threads, plan.smem, OR_MODES.index(plan.mode),
+        stream_of(occ), context=f"B {bsz}, grid {x}x{y}x{z}, K {k}")
     return out
 
 

@@ -5,8 +5,9 @@ of each grid, does box k fit in free space?" — so the engines live
 behind one registry and the allocator picks at runtime:
 
   * ``cuda``  — the hand-written CUDA kernels
-    (:mod:`repro_torch.kernels.fitmask.kernel`): one shared-memory
-    integral image per grid answers all K candidate boxes. The default.
+    (:mod:`repro_torch.kernels.fitmask.kernel`): each grid's rows held
+    as 64-bit occupancy words in shared memory answer all K candidate
+    boxes in one launch. The default.
   * ``torch`` — the same algorithm as plain PyTorch tensor ops, on any
     device; a user may select it, the main path never does.
   * ``numpy`` — batched integral-image window sums on the host

@@ -59,10 +59,104 @@ def test_kernels_match_plain_on_card(card, seed):
 
 
 def test_kernel_refuses_grid_beyond_shared_memory(card):
-    t = torch.zeros((1, 38, 38, 38), dtype=torch.bool, device=card)
-    with pytest.raises(ValueError, match="shared memory"):
-        tk.fitmask_multibox(t, [(1, 1, 1)])
-    assert tk.fitmask_multibox(t, []).shape == (1, 0, 38, 38, 38)
+    """A 38^3 grid (beyond the old integral image's 37^3) runs; a row
+    longer than 64 cells, or row words beyond a block's shared memory,
+    is refused with ValueError before any launch."""
+    t = torch.from_numpy(np.random.default_rng(1).uniform(
+        size=(1, 38, 38, 38)) < 0.01).to(card)
+    boxes = [(1, 1, 1), (4, 2, 38), (38, 38, 38)]
+    assert torch.equal(tk.fitmask_multibox(t, boxes),
+                       tk.fitmask_multibox_plain(t, boxes))
+    tk.reset_launch_counts()
+    for dims in [(4, 4, 65), (200, 200, 1)]:
+        big = torch.zeros((1,) + dims, dtype=torch.bool, device=card)
+        with pytest.raises(ValueError, match="at most"):
+            tk.fitmask_multibox(big, [(1, 1, 1)])
+        with pytest.raises(ValueError, match="at most"):
+            tk.fitmask_batched(big, (1, 1, 1))
+        assert tk.fitmask_multibox(big, []).shape == (1, 0) + dims
+    torch.cuda.synchronize()
+    assert tk.launch_counts() == {"fitmask_multibox": 0,
+                                  "fitmask_batched": 0,
+                                  "occupancy_counts": 0}
+
+
+def _bit_exact(t, boxes):
+    tk.reset_launch_counts()
+    got = tk.fitmask_multibox(t, boxes)
+    single = tk.fitmask_batched(t, boxes[-1])
+    want = tk.fitmask_multibox_plain(t, boxes)
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["fitmask_multibox"] == 1
+    assert tk.launch_counts()["fitmask_batched"] == 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    assert torch.equal(single, want[:, -1])
+
+
+@pytest.mark.parametrize("n", [38, 64])
+def test_kernel_large_grids_on_card(card, n):
+    rng = np.random.default_rng(n)
+    t = torch.from_numpy(rng.uniform(size=(1, n, n, n)) < 0.002).to(card)
+    _bit_exact(t, [(1, 1, 1), (3, 5, 7), (n, 1, 1), (1, 1, n - 1),
+                   (10, 20, n + 1), (n, n, n)])
+
+
+def test_kernel_z64_box_edges_on_card(card):
+    """Z = 64 with boxes of 1, 63, 64 and 65 cells along z: the masks
+    of 64 and of 1 low bits, and a box longer than the row."""
+    t = torch.from_numpy(np.random.default_rng(2).uniform(
+        size=(3, 5, 4, 64)) < 0.02).to(card)
+    _bit_exact(t, [(1, 1, 1), (2, 1, 63), (1, 2, 64), (1, 1, 65),
+                   (5, 4, 64), (1, 1, 64)])
+
+
+@pytest.mark.parametrize("z", [3, 5, 13])
+def test_kernel_ragged_rows_on_card(card, z):
+    """Rows whose length is off the 16-byte load, and stores of odd
+    length."""
+    rng = np.random.default_rng(z)
+    t = torch.from_numpy(rng.uniform(size=(6, 7, 5, z)) < 0.2).to(card)
+    _bit_exact(t, [(1, 1, 1), (2, 2, 2), (7, 5, z), (3, 1, z + 1),
+                   (1, 6, 1), (2, 3, z - 1)])
+
+
+def test_kernel_offset_view_on_card(card):
+    """occ[1:] of a Z = 3 batch starts 36 bytes into its storage."""
+    rng = np.random.default_rng(4)
+    full = torch.from_numpy(rng.uniform(size=(5, 4, 3, 3)) < 0.3).to(card)
+    t = full[1:]
+    assert t.is_contiguous() and t.data_ptr() % 16
+    _bit_exact(t, [(1, 1, 1), (2, 2, 2), (4, 3, 3), (1, 1, 4)])
+
+
+@pytest.mark.parametrize("bsz", [1, 512])
+def test_kernel_many_boxes_on_card(card, bsz):
+    rng = np.random.default_rng(bsz)
+    n = 4 if bsz > 1 else 8
+    t = torch.from_numpy(rng.uniform(size=(bsz, n, n, n))
+                         < rng.uniform(0.0, 0.4, size=(bsz, 1, 1, 1))
+                         ).to(card)
+    boxes = [tuple(int(v) for v in rng.integers(1, n + 2, size=3))
+             for _ in range(300)]
+    _bit_exact(t, boxes)
+
+
+@pytest.mark.parametrize("mode", tk.OR_MODES)
+def test_every_or_mode_matches_plain_on_card(card, mode):
+    """Each way the kernel may OR a box's rows, on grids of 16^3, 8^3,
+    2^3 and (but for the shuffle, which needs 32 % Y == 0) 64^3: several
+    units a block, one grid a block, several grids a block, several
+    blocks a grid."""
+    rng = np.random.default_rng(len(mode))
+    for bsz, n, k in [(1, 16, 20), (8, 8, 40), (100, 2, 8), (1, 64, 3)]:
+        if mode == "shuffle" and 32 % n:
+            continue
+        t = torch.from_numpy(rng.uniform(size=(bsz, n, n, n)) < 0.05).to(card)
+        table = tk.box_table([tuple(int(v) for v in rng.integers(
+            1, n + 2, size=3)) for _ in range(k)])
+        plan = tk.launch_plan(bsz, n, n, n, table, mode=mode)
+        assert torch.equal(tk._launch_multibox(t, table, plan),
+                           tk.fitmask_multibox_plain(t, table))
 
 
 @pytest.mark.parametrize("policy,kw", [
