@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Times the multi-box fitmask kernel (K1, and K3 through it) on one
-CUDA card, case by case, for the kernels of a given source tree.
+"""Times the fitmask kernels on one CUDA card, case by case, for the
+kernels of a given source tree: the multi-box kernel (K1, and K3
+through it), the occupancy counts (K2) and the fused bucketed launch
+(bool planes and counts in one launch).
 
     python3 benchmarks_torch/fitmask_bench.py [--src DIR] [--tree NAME]
                                               [--variants]
@@ -14,9 +16,10 @@ one call to the card, in turns (earlier, this, this, earlier).
 box's rows (``kernel.OR_MODES``: direct, staged, and shuffle where the
 grid allows it).
 
-The cases and their seeded grids are ``chip_smoke.py``'s kernel cases.
-Each timed call is first held bit-exact against the plain version; a
-tree that refuses a grid prints ``refused``. ``ms`` is device time per
+The cases and their seeded grids are ``chip_smoke.py``'s kernel cases
+(K2 also its count-only cases). Each timed call is first held bit-exact
+against the plain version; a tree that refuses a grid prints
+``refused``, one without the kernel ``absent``. ``ms`` is device time per
 launch, queued behind a spin kernel (``chip_smoke.device_ms``). Beside
 each multi-box case it times the card's floor for writing the same int32
 output (``Tensor.zero_``), and once the floor for one launch
@@ -62,7 +65,7 @@ def main(argv=None) -> int:
         except ValueError:
             ms = "refused"
         else:
-            if not torch.equal(got, plain()):
+            if not cs.same(got, plain()):
                 raise AssertionError(f"{args.tree} {name} on {label} "
                                      f"({plan}): differs from plain")
             ms = cs.device_ms(fn, cs.time_ms(fn))
@@ -70,10 +73,26 @@ def main(argv=None) -> int:
         print(f"fitmask_bench,{args.tree},{name},{label},{box},{plan},{ms}",
               flush=True)
 
+    def counts(label, occ):
+        run("occupancy_counts", label, None, "default",
+            lambda: kernel.occupancy_counts(occ),
+            lambda: kernel.occupancy_counts_plain(occ))
+
     print(f"fitmask_bench,{args.tree},launch floor,,,,{cs.launch_floor_ms()}")
+    bucketed = getattr(kernel, "fitmask_multibox_bucketed", None)
+    for label, bsz, dims, occ in cs.count_inputs(device):
+        counts(label, occ)
     for label, bsz, dims, boxes, occ in cs.kernel_inputs(device):
+        counts(label, occ)
         if not boxes:
             continue
+        if bucketed is None:
+            print(f"fitmask_bench,{args.tree},fitmask_multibox_bucketed,"
+                  f"{label},,default,absent")
+        else:
+            run("fitmask_multibox_bucketed", label, None, "default",
+                lambda: bucketed(occ, boxes),
+                lambda: kernel.fitmask_multibox_bucketed_plain(occ, boxes))
         work = [("fitmask_multibox", None, boxes)]
         work += [("fitmask_batched", box, [box])
                  for box in cs.single_boxes(dims, boxes).values()]

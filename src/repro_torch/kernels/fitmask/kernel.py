@@ -1,7 +1,7 @@
 """Free-box search ("fitmask") as hand-written CUDA kernels for Hopper.
 
 For every origin of an occupancy grid: is the (a, b, c) window entirely
-free? Three wrappers, each beside its plain PyTorch version and with a
+free? Four wrappers, each beside its plain PyTorch version and with a
 launch counter (``<wrapper>.launches``, a plain int bumped once per
 kernel launch and nowhere else):
 
@@ -14,6 +14,10 @@ kernel launch and nowhere else):
   (``_fitmask_kernel``).
 * :func:`occupancy_counts` — occupied cells per grid. Replaces
   ``occupancy_counts`` (``_occupancy_counts_kernel``).
+* :func:`fitmask_multibox_bucketed` — bool planes of all K boxes and
+  the occupied counts in one launch of the multi-box kernel: the fleet
+  broker's flush, as ``repro``'s ``JaxEngine._bucket_fn`` answers it
+  (``repro/kernels/fitmask/ops.py``).
 
 A wrapper takes its plain version only for a tensor on the CPU. For a
 CUDA tensor it launches the kernel or raises; nothing falls back. The
@@ -33,7 +37,10 @@ output plane stored as consecutive 16-byte chunks.
 :func:`launch_plan` cuts the (grid, box, x, y) items into blocks and
 checks the limit: Z ≤ 64 (a row is one word) and one grid's row words
 with a block's staging words within a block's shared memory.
-``occupancy_counts`` reads each cell once and writes one int32 per grid.
+``occupancy_counts`` reads each cell once and writes one int32 per grid;
+:func:`counts_plan` sizes its launch from (B, n): a power of two of
+lanes up to a warp a grid for small grids, a cluster of up to eight
+blocks a grid for large ones.
 """
 from __future__ import annotations
 
@@ -67,6 +74,15 @@ OR_MODES = ("direct", "staged", "shuffle")
 # Boxes of at most this many rows take the direct OR where the shuffle
 # does not apply: there it beats the staged OR's extra barrier.
 _DIRECT_ROWS = 16
+# occupancy_counts: the loads a thread is sized for (and the most it
+# issues at once), and the most blocks a grid may take (a thread-block
+# cluster; eight is the portable limit).
+COUNT_LOADS = 8
+MAX_CLUSTER = 8
+# Shared memory the bucketed launch keeps ahead of the row words (one
+# int a warp: csrc/fitmask.cu's kCountBytes).
+COUNT_SMEM = 4 * THREADS // 32
+_INT_MAX = 2**31 - 1
 
 
 class Plan(NamedTuple):
@@ -143,12 +159,64 @@ def launch_plan(bsz: int, x: int, y: int, z: int, table: np.ndarray,
     return p
 
 
+class CountPlan(NamedTuple):
+    """How one ``occupancy_counts`` launch cuts B grids of n bytes. Each
+    thread reads ``vec`` bytes a load (the widest of 16, 8, 4, 2, 1 that
+    divides n and the address), ``batch`` loads at a time (1, 2, 4 or 8:
+    the loads it has, up to 8). With ``cluster`` 0, ``lanes`` threads a
+    grid (a power of two, at most 32) and ``blocks`` blocks of
+    ``threads``; else ``cluster`` blocks of ``threads`` a grid, one
+    thread-block cluster each, and ``blocks`` = B · ``cluster``."""
+    vec: int
+    batch: int
+    lanes: int
+    cluster: int
+    threads: int
+    blocks: int
+
+
+def _pow2_at_least(v: int) -> int:
+    return 1 << (max(v, 1) - 1).bit_length()
+
+
+def counts_plan(bsz: int, n: int, addr: int = 0) -> CountPlan:
+    """Threads for B grids of n bytes starting at ``addr``: a lane for
+    each load, rounded up to a power of two, up to a warp a grid (which
+    then has up to :data:`COUNT_LOADS` loads a lane); past that, blocks
+    of 256 threads, as many a grid as leave each thread at most
+    :data:`COUNT_LOADS` loads, up to :data:`MAX_CLUSTER` (a larger grid
+    loops inside its cluster). More lanes with fewer loads each beat
+    fewer lanes with batched loads at every small grid timed on an
+    H100: shuffles cost less than the longer batch."""
+    m = n | 16 | (addr & 15)
+    vec = m & -m
+    loads = n // vec
+    if loads <= 32 * COUNT_LOADS:
+        lanes = min(32, _pow2_at_least(loads))
+        threads = min(THREADS, -(-bsz * lanes // 32) * 32)
+        batch = min(COUNT_LOADS, _pow2_at_least(-(-loads // lanes)))
+        plan = CountPlan(vec, batch, lanes, 0, threads,
+                         -(-bsz * lanes // threads))
+        work = bsz * lanes
+    else:
+        cluster = min(MAX_CLUSTER, -(-loads // (THREADS * COUNT_LOADS)))
+        batch = min(COUNT_LOADS,
+                    _pow2_at_least(-(-loads // (cluster * THREADS))))
+        plan = CountPlan(vec, batch, 0, cluster, THREADS, bsz * cluster)
+        work = plan.blocks
+    if work > _INT_MAX or n > _INT_MAX:
+        raise ValueError(f"B = {bsz} grids of {n} bytes: beyond one "
+                         f"occupancy_counts launch")
+    return plan
+
+
 @functools.cache
 def _lib() -> Library:
     p, i = ctypes.c_void_p, ctypes.c_int
     return Library(SOURCE, {
         "fitmask_multibox_launch": [p, p, p] + [i] * 11 + [p],
-        "occupancy_counts_launch": [p, p, i, i, p]})
+        "fitmask_multibox_bucketed_launch": [p, p, p, p] + [i] * 11 + [p],
+        "occupancy_counts_launch": [p, p] + [i] * 8 + [p]})
 
 
 # -- argument handling -------------------------------------------------
@@ -197,13 +265,51 @@ def _launch_multibox(occ: torch.Tensor, table: np.ndarray,
     return out
 
 
+def _launch_bucketed(occ: torch.Tensor, table: np.ndarray):
+    """Bool planes and int32 counts from one launch; K >= 1 and a
+    nonempty output."""
+    bsz, x, y, z = occ.shape
+    k = len(table)
+    planes = torch.empty((bsz, k, x, y, z), dtype=torch.bool,
+                         device=occ.device)
+    counts = torch.empty((bsz,), dtype=torch.int32, device=occ.device)
+    plan = launch_plan(bsz, x, y, z, table)
+    smem = plan.smem + COUNT_SMEM
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"grid {x}x{y}x{z}: the bucketed launch needs "
+                         f"{smem} bytes of shared memory; a block holds at "
+                         f"most {SMEM_LIMIT_BYTES}")
+    boxes = _device_boxes(table.tobytes(), occ.device)
+    _lib().launch(
+        "fitmask_multibox_bucketed_launch", occ.data_ptr(),
+        boxes.data_ptr(), planes.data_ptr(), counts.data_ptr(), bsz, x, y,
+        z, k, plan.gpb, plan.bpg, plan.upb, plan.threads, smem,
+        OR_MODES.index(plan.mode), stream_of(occ),
+        context=f"B {bsz}, grid {x}x{y}x{z}, K {k}")
+    return planes, counts
+
+
+def _launch_counts(occ: torch.Tensor, plan: CountPlan = None) -> torch.Tensor:
+    """(B,) int32 occupied counts from one launch; B >= 1 and n >= 1."""
+    bsz = occ.shape[0]
+    n = occ[0].numel()
+    out = torch.empty((bsz,), dtype=torch.int32, device=occ.device)
+    plan = plan or counts_plan(bsz, n, occ.data_ptr())
+    _lib().launch("occupancy_counts_launch", occ.data_ptr(), out.data_ptr(),
+                  bsz, n, *plan, stream_of(occ),
+                  context=f"B {bsz}, {n} bytes a grid, {plan}")
+    return out
+
+
 # -- plain PyTorch versions ------------------------------------------
 
-def integral_image(occ: torch.Tensor) -> torch.Tensor:
-    """(B, X, Y, Z) -> (B, X+1, Y+1, Z+1) int32 inclusive prefix sums."""
-    ii = F.pad(occ.to(torch.int32), (1, 0, 1, 0, 1, 0))
+def integral_image(occ: torch.Tensor,
+                   dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """(B, X, Y, Z) -> (B, X+1, Y+1, Z+1) inclusive prefix sums in
+    ``dtype`` (int32; int16 holds grids of up to 32767 cells)."""
+    ii = F.pad(occ.to(dtype), (1, 0, 1, 0, 1, 0))
     for ax in (1, 2, 3):
-        ii = ii.cumsum(ax, dtype=torch.int32)
+        ii = ii.cumsum(ax, dtype=dtype)
     return ii
 
 
@@ -245,6 +351,11 @@ def occupancy_counts_plain(occ: torch.Tensor) -> torch.Tensor:
         1, dtype=torch.int32)
 
 
+def fitmask_multibox_bucketed_plain(occ: torch.Tensor, boxes):
+    """Plain version of :func:`fitmask_multibox_bucketed`."""
+    return fitmask_multibox_plain(occ, boxes) != 0, occupancy_counts_plain(occ)
+
+
 # -- kernel wrappers ---------------------------------------------------
 
 def fitmask_multibox(occ: torch.Tensor, boxes) -> torch.Tensor:
@@ -281,26 +392,49 @@ fitmask_batched.launches = 0
 
 
 def occupancy_counts(occ: torch.Tensor) -> torch.Tensor:
-    """Occupied cells per grid: (B, X, Y, Z) bool -> (B,) int32."""
+    """Occupied cells per grid: (B, X, Y, Z) bool -> (B,) int32; a cell
+    is occupied where its byte is nonzero."""
     if occ.device.type == "cpu":
         return occupancy_counts_plain(occ)
     occ = _cuda_occ(occ)
     bsz = occ.shape[0]
-    n = occ[0].numel() if bsz else 0
-    out = torch.empty((bsz,), dtype=torch.int32, device=occ.device)
-    if bsz == 0:
-        return out
-    if n == 0:
-        return out.zero_()
-    _lib().launch("occupancy_counts_launch", occ.data_ptr(), out.data_ptr(),
-                  bsz, n, stream_of(occ))
+    if bsz == 0 or occ[0].numel() == 0:
+        return torch.zeros((bsz,), dtype=torch.int32, device=occ.device)
+    out = _launch_counts(occ)
     occupancy_counts.launches += 1
     return out
 
 
 occupancy_counts.launches = 0
 
-KERNELS = (fitmask_multibox, fitmask_batched, occupancy_counts)
+
+def fitmask_multibox_bucketed(occ: torch.Tensor, boxes):
+    """occ: (B, X, Y, Z) bool; ``boxes``: K (a, b, c) shapes. Returns
+    ``(planes, occupied)``: (B, K, X, Y, Z) bool planes, True where
+    ``boxes[k]`` fits with its corner at that cell, and the (B,) int32
+    occupied counts, from one launch. K = 0 returns empty planes and
+    the counts of :func:`occupancy_counts`."""
+    table = box_table(boxes)
+    if occ.device.type == "cpu":
+        return fitmask_multibox_bucketed_plain(occ, table)
+    occ = _cuda_occ(occ)
+    bsz, x, y, z = occ.shape
+    if len(table) == 0:
+        return (torch.empty((bsz, 0, x, y, z), dtype=torch.bool,
+                            device=occ.device), occupancy_counts(occ))
+    if bsz == 0 or x * y * z == 0:
+        return (torch.empty((bsz, len(table), x, y, z), dtype=torch.bool,
+                            device=occ.device),
+                torch.zeros((bsz,), dtype=torch.int32, device=occ.device))
+    out = _launch_bucketed(occ, table)
+    fitmask_multibox_bucketed.launches += 1
+    return out
+
+
+fitmask_multibox_bucketed.launches = 0
+
+KERNELS = (fitmask_multibox, fitmask_batched, occupancy_counts,
+           fitmask_multibox_bucketed)
 
 
 def reset_launch_counts() -> None:

@@ -7,9 +7,12 @@ behind one registry and the allocator picks at runtime:
   * ``cuda``  — the hand-written CUDA kernels
     (:mod:`repro_torch.kernels.fitmask.kernel`): each grid's rows held
     as 64-bit occupancy words in shared memory answer all K candidate
-    boxes in one launch. The default.
-  * ``torch`` — the same algorithm as plain PyTorch tensor ops, on any
-    device; a user may select it, the main path never does.
+    boxes in one launch, and with the free counts in the same launch
+    for ``multibox_bucketed``. The default.
+  * ``torch`` — the integral-image algorithm as plain PyTorch tensor
+    ops, on any device, with ``multibox_bucketed`` fused as ``repro``'s
+    ``JaxEngine._bucket_fn``; a user may select it, the main path never
+    does.
   * ``numpy`` — batched integral-image window sums on the host
     (:mod:`repro_torch.core.fitmask`); the host path and the oracle.
   * ``ref``   — the ``Tensor.unfold`` window-sum oracle.
@@ -75,7 +78,9 @@ class FitmaskEngine:
 
     def multibox_bucketed(self, occ, boxes: Sequence[Box]):
         """Planes (nonzero where the box fits) and free counts together,
-        as ``(planes, free)``. The default is the two classic calls."""
+        as ``(planes, free)``: the fleet broker's flush. The default is
+        the two classic calls; the ``torch`` and ``cuda`` engines fuse
+        them and answer with bool planes."""
         return self.multibox(occ, boxes), self.free_counts(occ)
 
     def fitmask(self, occ, box: Box):
@@ -134,11 +139,32 @@ class TorchEngine(_TensorEngine):
         return _kernel.fitmask_multibox_plain(self._occ(occ),
                                               _canon_boxes(boxes))
 
+    def multibox_bucketed(self, occ, boxes: Sequence[Box]):
+        """One pass, as ``repro``'s ``JaxEngine._bucket_fn``: an integral
+        image (int16 up to 32767 cells, whose window sums stay within
+        [0, cells]), each in-bounds box differenced out of it into a
+        bool plane, and the free counts read off its far corner."""
+        occ = self._occ(occ)
+        bsz, x, y, z = occ.shape
+        vol = x * y * z
+        ii = _kernel.integral_image(
+            occ, torch.int16 if vol <= 32767 else torch.int32)
+        boxes = _canon_boxes(boxes)
+        planes = torch.zeros((bsz, len(boxes), x, y, z), dtype=torch.bool,
+                             device=occ.device)
+        for k, (a, b, c) in enumerate(boxes):
+            if a <= x and b <= y and c <= z:
+                planes[:, k, :x - a + 1, :y - b + 1, :z - c + 1] = \
+                    _kernel.window_fits(ii, (a, b, c))
+        return planes, vol - ii[:, -1, -1, -1].to(torch.int32)
+
 
 class CudaEngine(_TensorEngine):
     """The CUDA kernels: ``multibox`` and ``fitmask`` launch the
-    multi-box kernel, ``free_counts`` the occupancy-count kernel. On a
-    CPU device (tests) the wrappers run their plain versions.
+    multi-box kernel, ``free_counts`` the occupancy-count kernel, and
+    ``multibox_bucketed`` the multi-box kernel's fused form (bool planes
+    and counts in one launch). On a CPU device (tests) the wrappers run
+    their plain versions.
 
     ``pads_shapes`` is False: the box table is a runtime tensor and the
     kernel takes B and K as arguments, so a new box or batch shape costs
@@ -157,6 +183,13 @@ class CudaEngine(_TensorEngine):
         occ = self._occ(occ)
         n3 = occ.shape[1] * occ.shape[2] * occ.shape[3]
         return n3 - _kernel.occupancy_counts(occ)
+
+    def multibox_bucketed(self, occ, boxes: Sequence[Box]):
+        occ = self._occ(occ)
+        n3 = occ.shape[1] * occ.shape[2] * occ.shape[3]
+        planes, occupied = _kernel.fitmask_multibox_bucketed(
+            occ, _canon_boxes(boxes))
+        return planes, n3 - occupied
 
 
 class RefEngine(_TensorEngine):

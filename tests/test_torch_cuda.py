@@ -52,10 +52,15 @@ def test_kernels_match_plain_on_card(card, seed):
     assert torch.equal(tk.fitmask_batched(t, boxes[0]),
                        tk.fitmask_batched_plain(t, boxes[0]))
     assert torch.equal(tk.occupancy_counts(t), tk.occupancy_counts_plain(t))
+    planes, counts = tk.fitmask_multibox_bucketed(t, boxes)
+    want_planes, want_counts = tk.fitmask_multibox_bucketed_plain(t, boxes)
+    assert planes.dtype == torch.bool and torch.equal(planes, want_planes)
+    assert torch.equal(counts, want_counts)
     torch.cuda.synchronize()
     assert tk.launch_counts() == {"fitmask_multibox": 1,
                                   "fitmask_batched": 1,
-                                  "occupancy_counts": 1}
+                                  "occupancy_counts": 1,
+                                  "fitmask_multibox_bucketed": 1}
 
 
 def test_kernel_refuses_grid_beyond_shared_memory(card):
@@ -74,11 +79,14 @@ def test_kernel_refuses_grid_beyond_shared_memory(card):
             tk.fitmask_multibox(big, [(1, 1, 1)])
         with pytest.raises(ValueError, match="at most"):
             tk.fitmask_batched(big, (1, 1, 1))
+        with pytest.raises(ValueError, match="at most"):
+            tk.fitmask_multibox_bucketed(big, [(1, 1, 1)])
         assert tk.fitmask_multibox(big, []).shape == (1, 0) + dims
     torch.cuda.synchronize()
     assert tk.launch_counts() == {"fitmask_multibox": 0,
                                   "fitmask_batched": 0,
-                                  "occupancy_counts": 0}
+                                  "occupancy_counts": 0,
+                                  "fitmask_multibox_bucketed": 0}
 
 
 def _bit_exact(t, boxes):
@@ -157,6 +165,119 @@ def test_every_or_mode_matches_plain_on_card(card, mode):
         plan = tk.launch_plan(bsz, n, n, n, table, mode=mode)
         assert torch.equal(tk._launch_multibox(t, table, plan),
                            tk.fitmask_multibox_plain(t, table))
+
+
+def _shapes(n):
+    return [(a, b, c) for a in range(1, n + 1) for b in range(1, n + 1)
+            for c in range(1, n + 1)]
+
+
+# (id, B, grid, boxes, kind): the loop's grids (all cubes of 8^3, 4^3
+# and 2^3, and one of each), 16^3, 38^3, 64^3, rows of 3, 5 and 13
+# cells, K = 0, boxes larger than the grid, a view one grid into its
+# storage (kind "offset") and uint8 grids viewed as bool with bytes of 2
+# and 255 (kind "bytes").
+COUNT_CASES = [
+    ("512 x 2^3", 512, (2, 2, 2), _shapes(2), ""),
+    ("64 x 4^3", 64, (4, 4, 4), _shapes(4)[::5], ""),
+    ("8 x 8^3", 8, (8, 8, 8), _shapes(8)[::7], ""),
+    ("1 x 2^3", 1, (2, 2, 2), _shapes(2), ""),
+    ("2 x 4^3", 2, (4, 4, 4), _shapes(4), ""),
+    ("1 x 8^3", 1, (8, 8, 8), _shapes(8)[::11], ""),
+    ("16^3", 2, (16, 16, 16), [(1, 1, 1), (2, 3, 4), (16, 16, 16)], ""),
+    ("38^3", 1, (38, 38, 38), [(1, 1, 1), (5, 7, 3), (39, 1, 1)], ""),
+    ("64^3", 2, (64, 64, 64), [(1, 1, 1), (3, 5, 7), (1, 1, 65)], ""),
+    ("Z 3", 8, (7, 6, 3), _shapes(3), ""),
+    ("Z 5", 8, (5, 5, 5), _shapes(5)[::3], ""),
+    ("Z 13", 3, (9, 4, 13), [(1, 1, 1), (2, 3, 4), (1, 1, 14)], ""),
+    ("K=0", 3, (8, 8, 8), [], ""),
+    ("oversize", 4, (4, 4, 4), [(5, 1, 1), (1, 6, 1), (17, 17, 17)], ""),
+    ("offset Z 3", 5, (4, 3, 3), _shapes(3), "offset"),
+    ("offset 5^3", 9, (5, 5, 5), [(1, 1, 1), (2, 2, 2)], "offset"),
+    ("bytes 4^3", 64, (4, 4, 4), [(1, 1, 1), (2, 2, 2), (4, 1, 3)], "bytes"),
+    ("bytes 5^3", 3, (5, 5, 5), [(1, 1, 1), (2, 3, 2)], "bytes"),
+]
+
+
+def _grids_on_card(card, seed, bsz, dims, kind):
+    rng = np.random.default_rng(seed)
+    extra = int(kind == "offset")
+    shape = (bsz + extra,) + dims
+    if kind == "bytes":
+        raw = rng.choice(np.array([0, 1, 2, 255], np.uint8), size=shape,
+                         p=[0.6, 0.1, 0.15, 0.15])
+        t = torch.from_numpy(raw).to(card).view(torch.bool)
+    else:
+        dens = rng.uniform(0.0, 0.6, size=(bsz + extra, 1, 1, 1))
+        t = torch.from_numpy(rng.uniform(size=shape) < dens).to(card)
+    t = t[extra:]
+    assert t.is_contiguous() and (t.data_ptr() % 16 != 0) == bool(extra)
+    return t
+
+
+@pytest.mark.parametrize("label,bsz,dims,boxes,kind", COUNT_CASES,
+                         ids=[c[0] for c in COUNT_CASES])
+def test_counts_and_bucketed_bit_exact_on_card(card, label, bsz, dims, boxes,
+                                               kind):
+    """K2 and the fused launch against their plain versions, one launch
+    a call (K = 0: the fused wrapper's counts are K2's launch)."""
+    t = _grids_on_card(card, len(label), bsz, dims, kind)
+    want_planes, want_counts = tk.fitmask_multibox_bucketed_plain(t, boxes)
+    tk.reset_launch_counts()
+    counts = tk.occupancy_counts(t)
+    planes, fused = tk.fitmask_multibox_bucketed(t, boxes)
+    torch.cuda.synchronize()
+    assert counts.dtype == fused.dtype == torch.int32
+    assert torch.equal(counts, want_counts) and torch.equal(fused, want_counts)
+    assert planes.dtype == torch.bool and torch.equal(planes, want_planes)
+    assert tk.launch_counts() == {
+        "fitmask_multibox": 0, "fitmask_batched": 0,
+        "occupancy_counts": 2 if not boxes else 1,
+        "fitmask_multibox_bucketed": 1 if boxes else 0}
+    if kind == "bytes":
+        assert int(t.view(torch.uint8).max()) == 255
+
+
+@pytest.mark.parametrize("n", [8, 64, 512, 4096, 54872, 262144, 70001])
+def test_every_count_plan_matches_plain_on_card(card, n):
+    """Each lane count (1 to 32), cluster size (1 to 8) and batch of
+    loads (1 to 8) the counts kernel may take, forced on grids of n
+    bytes, aligned and one byte off."""
+    rng = np.random.default_rng(n)
+    raw = torch.from_numpy(rng.choice(np.array([0, 1, 7], np.uint8),
+                                      size=3 * n + 1)).to(card)
+    for start in (0, 1):
+        t = raw[start:start + 3 * n].view(torch.bool).reshape(3, n, 1, 1)
+        want = tk.occupancy_counts_plain(t)
+        base = tk.counts_plan(3, n, t.data_ptr())
+        plans = [base._replace(batch=batch, lanes=lanes, cluster=0,
+                               threads=96, blocks=-(-3 * lanes // 96))
+                 for lanes in (1, 2, 4, 8, 16, 32) for batch in (1, 8)]
+        plans += [base._replace(batch=batch, lanes=0, cluster=c,
+                                threads=256, blocks=3 * c)
+                  for c in range(1, 9) for batch in (1, 2, 4, 8)]
+        for plan in plans:
+            assert torch.equal(tk._launch_counts(t, plan), want), plan
+        assert torch.equal(tk.occupancy_counts(t), want)
+
+
+def test_cuda_engine_bucketed_is_one_launch(card):
+    """``CudaEngine.multibox_bucketed``: one launch a call, free counts
+    and bool planes equal to the numpy engine's fused answer."""
+    from repro_torch.kernels.fitmask import ops as tops
+    rng = np.random.default_rng(5)
+    occ = rng.uniform(size=(8, 8, 8, 8)) < 0.3
+    boxes = _shapes(8)[::9]
+    want_planes, want_free = tops.get_engine("numpy").multibox_bucketed(
+        occ, boxes)
+    tk.reset_launch_counts()
+    planes, free = tops.get_engine("cuda", device=card).multibox_bucketed(
+        occ, boxes)
+    torch.cuda.synchronize()
+    assert sum(tk.launch_counts().values()) == 1
+    assert tk.launch_counts()["fitmask_multibox_bucketed"] == 1
+    assert (planes.cpu().numpy() == want_planes).all()
+    assert (free.cpu().numpy() == want_free).all()
 
 
 @pytest.mark.parametrize("policy,kw", [
