@@ -21,26 +21,42 @@
    could take (the bound) and, where one PyTorch call computes the same
    function, beside that call (K2: ``occ.sum``; K3: ``F.max_pool3d`` over
    the box, first checked equal to the kernel's plane where the box
-   fits).
+   fits). The fused launch and K2 are also checked and timed at the
+   fleet's shapes: six simulators' grids stacked on B (6 x 16^3,
+   48 x 8^3, 384 x 4^3, 3072 x 2^3) with the loop's box tables.
 4. Placement main path: runs the eight Table 1 / Fig 3 placement
    configurations at 4096 XPUs on the 200-job trace (seed 0,
    ``target_load=1.5``) through the ``cuda`` engine, and again through
    the host ``numpy`` engine. Schedules and summaries must be identical,
    and each fitmask kernel of the loop must have been launched by the
    ``cuda`` runs (K1 and K3 by every configuration, K2 by Reconfig and
-   RFold). The fused bucketed launch is not on this path: its caller is
-   the fleet broker, which the port does not have yet.
-5. Sequence kernel phase: holds K4 (flash attention) and K5 (SSD scan)
+   RFold).
+5. Fleet main path: the same eight configurations, 3 runs x 200 jobs
+   (seed0 100), through ``repro_torch.eval.EvalRunner`` as fleets
+   (``workers=0``, ``fleet_size="auto"``: four fleets of six) on the
+   ``cuda`` engine, where every broker multibox flush is one launch of
+   the fused bucketed kernel; then as fleets of six on ``numpy`` and
+   per task on ``numpy`` (timed after an untimed per-task pass, the oracle).
+   Records (``sim_s`` aside) and Table 1 / Fig 3 / Fig 4 must be
+   identical, the fused launch launched, the broker batching
+   (``mean_grids_per_call > 1``) with no failover and no canary check.
+   One more run, 1 x 60 jobs on ``cuda`` with ``workers=2`` (spawned
+   workers), must give the records of the same matrix at ``workers=0``.
+6. Sequence kernel phase: holds K4 (flash attention) and K5 (SSD scan)
    against their plain versions in fp32 and bf16, at the zamba2 prefill
    shapes and at edge cases (K5 with B and C per group, as the model
    hands them over), within stated tolerances, and times them beside
    their bounds, the earlier kernel's time and, for K4, PyTorch's SDPA.
-6. Serve main path, zamba2-1.2b at full width (38 layers, fp32, random
+7. Serve main path, zamba2-1.2b at full width (38 layers, fp32, random
    weights from seed 0): the prefill forward at B 2, S 4096 through the
    kernels (exactly 6 K4 and 38 K5 launches) against the plain path;
    128 decode steps against the prefill logits; and greedy serving
    through ``repro_torch.launch.serve`` at its default sizes.
-7. Prints one JSON line per the kernel table, then the result line.
+8. Prints one JSON line per the kernel table, then the result line.
+
+Launch counters are set to 0 just before each main path (placement,
+fleet, serve) and read just after; every kernel must have been launched
+on a path.
 
 Any failure raises and exits non-zero. With no CUDA device, or without
 the repository's ``src/repro_torch`` beside it, it exits non-zero and
@@ -78,9 +94,16 @@ CONFIGS = [
     ("RFold (2^3)", "rfold", dict(num_xpus=4096, cube_n=2)),
 ]
 NUM_JOBS, SEED, LOAD = 200, 0, 1.5
-# Fitmask kernels whose caller the port does not have yet (the fleet
-# broker's flush): checked and timed, but not launched by the main path.
-OFF_PATH = ("fitmask_multibox_bucketed",)
+# Fitmask kernels that no main path launches (checked and timed only).
+OFF_PATH = ()
+# The fleet phase: benchmarks_torch/fleet_bench.py's CI size, and the
+# smaller matrix that runs again with spawned workers.
+FLEET_RUNS, FLEET_JOBS, FLEET_SEED0 = 3, 200, 100
+SPAWN_RUNS, SPAWN_JOBS, SPAWN_WORKERS = 1, 60, 2
+# Simulators a fleet stacks on B at that size (fleet_size "auto" with 24
+# tasks in four grid buckets at workers=0), for the kernel phase.
+FLEET_SIZE = 6
+FLEET_OF = ("static 16^3", "cubes 8^3", "cubes 4^3", "cubes 2^3")
 
 REPLACES = {
     "fitmask_multibox": "src/repro/kernels/fitmask/kernel.py:117",
@@ -211,6 +234,21 @@ def count_inputs(device):
         yield label, bsz, dims, occupancy(rng, bsz, dims, device)
 
 
+def fleet_inputs(device):
+    """The fleet broker's flush shapes: :data:`FLEET_SIZE` simulators'
+    grids of each loop case in :data:`FLEET_OF` stacked on B, with that
+    case's box table (the union a flush of the loop's queries asks for),
+    as (label, B, dims, boxes, occ)."""
+    loop = {label: (bsz, dims, boxes) for label, bsz, dims, boxes, _ in
+            kernel_cases(np.random.default_rng(SEED))}
+    rng = np.random.default_rng(SEED + 2)
+    for name in FLEET_OF:
+        bsz, dims, boxes = loop[name]
+        bsz *= FLEET_SIZE
+        yield (f"fleet {bsz} x {name.split()[-1]}", bsz, dims, boxes,
+               occupancy(rng, bsz, dims, device))
+
+
 def reps_for(fn, budget_ms=400.0):
     """Repetitions that fit one timing in about ``budget_ms`` (3 to 50),
     from one synchronised call."""
@@ -334,26 +372,31 @@ def counts_check(kernel, occ, bsz, dims):
 def kernel_phase(kernel, device):
     print(f"launch_floor_ms,{launch_floor_ms()}")
     rows = []
-    cases = [(label, bsz, dims, boxes, occ) for label, bsz, dims, boxes, occ
-             in kernel_inputs(device)]
-    cases += [(label, bsz, dims, None, occ) for label, bsz, dims, occ
+    # (label, B, dims, boxes, occ, fleet): loop cases, count cases (no
+    # boxes), and the fleet's shapes (K2 and the fused launch only).
+    cases = [(*case, False) for case in kernel_inputs(device)]
+    cases += [(label, bsz, dims, None, occ, False) for label, bsz, dims, occ
               in count_inputs(device)]
-    for label, bsz, dims, boxes, occ in cases:
+    cases += [(*case, True) for case in fleet_inputs(device)]
+    for label, bsz, dims, boxes, occ, fleet in cases:
         checks = [counts_check(kernel, occ, bsz, dims)]
-        if boxes is not None:
-            checks += [
+        if boxes is not None and not fleet:
+            checks.append(
                 ("fitmask_multibox",
                  lambda: kernel.fitmask_multibox(occ, boxes),
                  lambda: kernel.fitmask_multibox_plain(occ, boxes), None,
                  [bsz, len(boxes), *dims], multibox_work(bsz, dims, boxes),
-                 ("", None)),
+                 ("", None)))
+        if boxes is not None:
+            checks += [
                 ("fitmask_multibox_bucketed",
                  lambda: kernel.fitmask_multibox_bucketed(occ, boxes),
                  lambda: kernel.fitmask_multibox_bucketed_plain(occ, boxes),
                  None, [bsz, len(boxes), *dims],
                  bucketed_work(bsz, dims, boxes), ("", None)),
             ]
-        for role, box in (single_boxes(dims, boxes) if boxes else {}).items():
+        picks = single_boxes(dims, boxes) if boxes and not fleet else {}
+        for role, box in picks.items():
             checks.append(
                 ("fitmask_batched",
                  lambda box=box: kernel.fitmask_batched(occ, box),
@@ -453,11 +496,123 @@ def main_path_phase(kernel, device):
               f"{n['fitmask_multibox']},"
               f"{n['fitmask_batched']},{n['occupancy_counts']},"
               f"{summ['jcr']},{summ['util_mean']}")
-    totals = kernel.launch_counts()
-    for name, count in totals.items():
-        if count == 0 and name not in OFF_PATH:
-            raise AssertionError(f"{name} never launched on the main path")
-    return totals
+    return kernel.launch_counts()
+
+
+def strip_timing(records):
+    """Records without ``sim_s``, as canonical JSON (a NaN percentile
+    compares equal to itself)."""
+    return json.dumps([{k: v for k, v in r.items() if k != "sim_s"}
+                       for r in records], sort_keys=True)
+
+
+def figures(records):
+    """Table 1 / Fig 3 / Fig 4 of the records, as canonical JSON."""
+    from repro_torch.eval import aggregate_by_label, fig3, fig4, table1
+
+    aggs = aggregate_by_label(records)
+    return json.dumps({"table1": table1(aggs), "fig3": fig3(aggs),
+                       "fig4": fig4(aggs)}, sort_keys=True, default=float)
+
+
+def fleet_phase(kernel, device):
+    """The eval matrix through fleets on the card, against fleets and
+    per-task runs on numpy; then spawned workers on the card. Returns
+    the fitmask launches of the ``cuda`` fleet run."""
+    from repro_torch.core.engineconfig import EngineConfig
+    from repro_torch.eval import EvalRunner, aggregate_by_label, make_tasks
+
+    cuda = EngineConfig("cuda", device=device)
+
+    def run(cfg, tasks, workers=0):
+        runner = EvalRunner(workers=workers, engine=cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = runner.run(tasks)
+        torch.cuda.synchronize()
+        return records, time.perf_counter() - t0, runner
+
+    tasks = make_tasks(CONFIGS, FLEET_RUNS, FLEET_JOBS, LOAD, FLEET_SEED0)
+    print("# fleet main path: %d configs x %d runs x %d jobs, seed0 %d, "
+          "target_load %s, workers 0, fleet_size auto; after an untimed "
+          "per-task numpy pass (the oracle, which also fills the fold and "
+          "plan caches)" % (len(CONFIGS), FLEET_RUNS, FLEET_JOBS,
+                            FLEET_SEED0, LOAD))
+    seq = EngineConfig("numpy", fleet_size=0)
+    per_task = run(seq, tasks)[0]
+    kernel.reset_launch_counts()
+    got, cuda_s, cuda_run = run(cuda, tasks)
+    launches = kernel.launch_counts()
+    np_fleet, np_fleet_s, np_run = run(
+        EngineConfig("numpy", fleet_size=FLEET_SIZE), tasks)
+    per_task_s = run(seq, tasks)[1]
+    for name, recs in (("cuda fleet", got), ("numpy fleet", np_fleet)):
+        if strip_timing(recs) != strip_timing(per_task) \
+                or figures(recs) != figures(per_task):
+            raise AssertionError(f"{name}: records or Table 1 / Fig 3 / "
+                                 "Fig 4 differ from per-task numpy's")
+    print("# park_s: seconds queries sat parked, summed over simulators; "
+          "engine_s: seconds in engine calls, host copies included")
+    print("fleet,engine,wall_s,fleets,size,flushes,flush_all_parked,"
+          "flush_quorum,flush_timeout,requeued,engine_calls,batched_calls,"
+          "mean_grids_per_call,max_grids,fc_inline,fc_cache_hits,"
+          "fc_cache_misses,engine_failovers,canary_checks,park_s,engine_s,"
+          "fused_launches,k2_launches,k1_launches,k3_launches")
+    for name, wall, runner, n in (
+            ("cuda", cuda_s, cuda_run, launches),
+            ("numpy", np_fleet_s, np_run, dict.fromkeys(launches, 0))):
+        fl = runner.last_stats["fleet"]
+        b = fl["broker"]
+        print(f"fleet,{name},{wall},{fl['fleets']},{fl['size']},"
+              f"{b['flushes']},{b['flush_all_parked']},{b['flush_quorum']},"
+              f"{b['flush_timeout']},{b['requeued']},{b['engine_calls']},"
+              f"{b['batched_calls']},{b['mean_grids_per_call']},"
+              f"{b['max_grids']},{b['fc_inline']},{b['fc_cache_hits']},"
+              f"{b['fc_cache_misses']},{b['engine_failovers']},"
+              f"{b['canary_checks']},{b['park_s']},{b['engine_s']},"
+              f"{n['fitmask_multibox_bucketed']},"
+              f"{n['occupancy_counts']},{n['fitmask_multibox']},"
+              f"{n['fitmask_batched']}")
+    print("fleet_walls,cuda_fleet_s,numpy_fleet_s,numpy_per_task_s,"
+          "cuda_over_numpy_fleet,cuda_over_numpy_per_task")
+    print(f"fleet_walls,{cuda_s},{np_fleet_s},{per_task_s},"
+          f"{cuda_s / np_fleet_s},{cuda_s / per_task_s}")
+    sim_cuda = aggregate_by_label(got)
+    sim_np = aggregate_by_label(per_task)
+    print("fleet_sim_s,config,cuda_fleet_sim_s,numpy_per_task_sim_s,jcr")
+    for label, _, _ in CONFIGS:
+        print(f"fleet_sim_s,{label},{sim_cuda[label]['sim_s_total']},"
+              f"{sim_np[label]['sim_s_total']},"
+              f"{sim_cuda[label]['agg']['jcr']}")
+    b = cuda_run.last_stats["fleet"]["broker"]
+    if launches["fitmask_multibox_bucketed"] == 0:
+        raise AssertionError("the fleet never launched "
+                             "fitmask_multibox_bucketed")
+    if b["fc_cache_misses"] and launches["occupancy_counts"] == 0:
+        raise AssertionError("free-count flushes launched no "
+                             "occupancy_counts")
+    if b["engine_failovers"] or b["canary_checks"] or b["engine_retries"]:
+        raise AssertionError(f"the cuda fleet failed over: {b}")
+    if not (b["batched_calls"] > 0 and b["mean_grids_per_call"] > 1):
+        raise AssertionError(f"the cuda fleet did not batch: {b}")
+
+    small = make_tasks(CONFIGS, SPAWN_RUNS, SPAWN_JOBS, LOAD, FLEET_SEED0)
+    inline, inline_s, _ = run(cuda, small)
+    pooled, pooled_s, pool = run(cuda, small, SPAWN_WORKERS)
+    if pool.start_method() != "spawn":
+        raise AssertionError("a pool on the card must spawn its workers")
+    pb = pool.last_stats["fleet"]
+    print("fleet_spawn,runs,jobs,workers,start_method,fleets,wall_workers_0_s,"
+          f"wall_workers_{SPAWN_WORKERS}_s,engine_failovers")
+    print(f"fleet_spawn,{SPAWN_RUNS},{SPAWN_JOBS},{SPAWN_WORKERS},"
+          f"{pool.start_method()},{pb['fleets']},{inline_s},{pooled_s},"
+          f"{pb['broker']['engine_failovers']}")
+    if strip_timing(pooled) != strip_timing(inline):
+        raise AssertionError("spawned workers on the card gave other "
+                             "records than workers=0")
+    if pb["fleets"] < 2 or pb["broker"]["engine_failovers"]:
+        raise AssertionError(f"spawned fleets: {pb}")
+    return launches
 
 
 def build_all():
@@ -865,8 +1020,17 @@ def main() -> int:
     rows = kernel_phase(kernel, device)
     phase_s["fitmask kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches = main_path_phase(kernel, device)
+    placement = main_path_phase(kernel, device)
     phase_s["placement main path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet = fleet_phase(kernel, device)
+    phase_s["fleet main path"] = time.perf_counter() - t0
+    by_path = {name: {"placement": placement[name], "fleet": fleet[name]}
+               for name in placement}
+    launches = {name: sum(n.values()) for name, n in by_path.items()}
+    for name, count in launches.items():
+        if count == 0 and name not in OFF_PATH:
+            raise AssertionError(f"{name} never launched on a main path")
     t0 = time.perf_counter()
     rows += seq_kernel_phase(device)
     phase_s["sequence kernels"] = time.perf_counter() - t0
@@ -878,12 +1042,14 @@ def main() -> int:
         time.perf_counter() - t_start))
 
     # One entry per kernel, at its heaviest main-path case above (the
-    # single-box kernel: its largest in-grid box there; K4 and K5: the
-    # zamba2 prefill shape in fp32, the type the serve path runs).
+    # single-box kernel: its largest in-grid box there; the fused launch:
+    # a fleet of six's 8^3 flush; K4 and K5: the zamba2 prefill shape in
+    # fp32, the type the serve path runs).
     heaviest = {"fitmask_multibox": ("cubes 8^3", "box_role", ""),
                 "fitmask_batched": ("static 16^3", "box_role", "largest"),
                 "occupancy_counts": ("cubes 4^3", "box_role", ""),
-                "fitmask_multibox_bucketed": ("cubes 8^3", "box_role", ""),
+                "fitmask_multibox_bucketed": ("fleet 48 x 8^3", "box_role",
+                                              ""),
                 "flash_attention": ("path", "dtype", "float32"),
                 "ssd_scan": ("path", "dtype", "float32")}
     entries = []
@@ -893,7 +1059,9 @@ def main() -> int:
         entries.append(dict(
             name=name, route="cuda", source="src/repro_torch/csrc/"
             + SOURCE[name], replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=r["max_abs_err"],
+            launches=launches[name],
+            launches_by_path=by_path.get(name, {"serve": launches[name]}),
+            max_abs_err=r["max_abs_err"],
             ms=r["ms"], call_ms=r["call_ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"],

@@ -27,16 +27,16 @@ from __future__ import annotations
 import os
 import warnings
 from dataclasses import dataclass, replace
-from typing import Optional
+from typing import Optional, Union
 
 ENGINE_ENV = "REPRO_TORCH_FITMASK_ENGINE"
 
 # Failover order: each step strictly reduces the stack it depends on,
 # ending at the pure-numpy host engine that cannot lose a backend.
 # Registry engines outside the chain (e.g. ``ref``) degrade straight to
-# numpy. Nothing in this package fails over yet: the placement loop
-# raises on an engine error; the chain is the contract a fleet broker
-# walks.
+# numpy. The fleet broker (``repro_torch.sim.fleet``) walks it only when
+# built with ``failover=True``; otherwise, as in the inline placement
+# loop, an engine error is raised.
 FAILOVER_CHAIN = ("cuda", "torch", "numpy")
 
 
@@ -118,10 +118,18 @@ class EngineConfig:
     ``device``
         ``torch.device`` (or its string) the tensor engines run on.
         ``None`` means ``cuda``. Ignored by the ``numpy`` host engine.
+    ``fleet_size`` / ``quorum`` / ``timeout`` / ``max_inflight``
+        How the fleet layer drives the backend: simulators per broker
+        and the broker's flush policy. ``"auto"`` defers to the
+        engine-aware policy in ``repro_torch.sim.fleet.Fleet``.
     """
 
     engine: Optional[str] = None
     device: Optional[object] = None
+    fleet_size: Union[str, int, None] = "auto"
+    quorum: Union[str, float, None] = "auto"
+    timeout: Union[str, float, None] = "auto"
+    max_inflight: Optional[int] = None
 
     @classmethod
     def coerce(cls, value) -> "EngineConfig":
@@ -159,3 +167,12 @@ class EngineConfig:
         the numpy host integral-image path."""
         from .maskquery import resolve_mask_client
         return resolve_mask_client(self)
+
+    def fleet_kwargs(self) -> dict:
+        """Kwargs for ``repro_torch.sim.fleet.Fleet``/``QueryBroker``,
+        the device included."""
+        kw = {"engine": self.engine, "device": self.device,
+              "quorum": self.quorum, "timeout": self.timeout}
+        if self.max_inflight is not None:
+            kw["max_inflight"] = self.max_inflight
+        return kw

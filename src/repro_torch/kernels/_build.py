@@ -7,17 +7,23 @@ keyed by the hash of its source and the flags, so an edited source is
 rebuilt and an unchanged one is reused. Libraries go to
 ``build/repro_torch/`` beside ``src/``. Nothing is built when a module
 is imported: the kernel modules call :func:`build` at first launch.
+
+Building, loading and counting are safe across threads: the fleet
+broker may launch from two flush lanes at once. Each source builds once
+under its own lock (two sources still build in parallel), into a
+temporary file named by process and thread, and the wrappers' launch
+counters are bumped under one lock (:func:`count_launch`).
 """
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple, TypeVar
 
 import torch
 
@@ -40,12 +46,30 @@ def _nvcc() -> str:
     return nvcc
 
 
-@functools.cache
+# _LOCK guards _SOURCE_LOCKS and the launch counters; each source builds
+# (and enters _BUILT) under its own lock from _SOURCE_LOCKS.
+_LOCK = threading.Lock()
+_SOURCE_LOCKS: Dict[str, threading.Lock] = {}
+_BUILT: Dict[str, Tuple[Path, str]] = {}
+
+T = TypeVar("T")
+
+
 def build(source: str) -> Tuple[Path, str]:
     """Compile ``csrc/<source>`` (once per content) into a shared library
     and return its path and the compiler's report (``-Xptxas -v``:
     registers, shared memory and spills per kernel; empty when the
-    library was already built)."""
+    library was already built). Threads asking for one source wait for
+    one build; different sources build in parallel."""
+    with _LOCK:
+        lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with lock:
+        if source not in _BUILT:
+            _BUILT[source] = _compile(source)
+        return _BUILT[source]
+
+
+def _compile(source: str) -> Tuple[Path, str]:
     src = CSRC / source
     text = src.read_bytes()
     tag = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
@@ -53,13 +77,36 @@ def build(source: str) -> Tuple[Path, str]:
     if lib.exists():
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    tmp = lib.with_name(
+        f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
+
+
+def load_once(factory: Callable[[], T]) -> Callable[[], T]:
+    """``factory()`` called once, under a lock of its own, whichever
+    threads ask first: the kernel modules' ``_lib()``."""
+    made: list = []
+    lock = threading.Lock()
+
+    def get() -> T:
+        if not made:
+            with lock:
+                if not made:
+                    made.append(factory())
+        return made[0]
+    return get
+
+
+def count_launch(fn) -> None:
+    """One more launch on ``fn.launches``, under the lock: two flush
+    lanes may launch the same kernel at once."""
+    with _LOCK:
+        fn.launches += 1
 
 
 class Library:

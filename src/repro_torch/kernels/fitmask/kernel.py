@@ -52,7 +52,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .._build import SMEM_LIMIT_BYTES, Library, stream_of
+from .._build import (SMEM_LIMIT_BYTES, Library, count_launch, load_once,
+                      stream_of)
 
 Box = Tuple[int, int, int]
 
@@ -210,7 +211,7 @@ def counts_plan(bsz: int, n: int, addr: int = 0) -> CountPlan:
     return plan
 
 
-@functools.cache
+@load_once
 def _lib() -> Library:
     p, i = ctypes.c_void_p, ctypes.c_int
     return Library(SOURCE, {
@@ -369,7 +370,7 @@ def fitmask_multibox(occ: torch.Tensor, boxes) -> torch.Tensor:
         return fitmask_multibox_plain(occ, table)
     out = _launch_multibox(_cuda_occ(occ), table)
     if out.numel():
-        fitmask_multibox.launches += 1
+        count_launch(fitmask_multibox)
     return out
 
 
@@ -384,7 +385,7 @@ def fitmask_batched(occ: torch.Tensor, box: Box) -> torch.Tensor:
         return fitmask_multibox_plain(occ, table)[:, 0]
     out = _launch_multibox(_cuda_occ(occ), table)
     if out.numel():
-        fitmask_batched.launches += 1
+        count_launch(fitmask_batched)
     return out[:, 0]
 
 
@@ -401,7 +402,7 @@ def occupancy_counts(occ: torch.Tensor) -> torch.Tensor:
     if bsz == 0 or occ[0].numel() == 0:
         return torch.zeros((bsz,), dtype=torch.int32, device=occ.device)
     out = _launch_counts(occ)
-    occupancy_counts.launches += 1
+    count_launch(occupancy_counts)
     return out
 
 
@@ -427,7 +428,7 @@ def fitmask_multibox_bucketed(occ: torch.Tensor, boxes):
                             device=occ.device),
                 torch.zeros((bsz,), dtype=torch.int32, device=occ.device))
     out = _launch_bucketed(occ, table)
-    fitmask_multibox_bucketed.launches += 1
+    count_launch(fitmask_multibox_bucketed)
     return out
 
 

@@ -30,12 +30,11 @@ per FMA.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
 
-from .._build import Library, aligned, stream_of
+from .._build import Library, aligned, count_launch, load_once, stream_of
 from . import ref
 
 SOURCE = "flash_attention.cu"          # in repro_torch/csrc
@@ -43,7 +42,7 @@ HEAD_DIMS = (32, 64, 128)              # the kernel's instantiations
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@functools.cache
+@load_once
 def _lib() -> Library:
     p, i = ctypes.c_void_p, ctypes.c_int
     return Library(SOURCE, {
@@ -101,7 +100,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         "flash_attention_launch", q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), b, s, t, h, kh, d, int(causal), int(window or 0),
         _TYPES[q.dtype], stream_of(q))
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     return out
 
 

@@ -37,19 +37,18 @@ the card has.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
 
-from .._build import Library, aligned, stream_of
+from .._build import Library, aligned, count_launch, load_once, stream_of
 from . import ref
 
 SOURCE = "ssd_scan.cu"                 # in repro_torch/csrc
 _TYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@functools.cache
+@load_once
 def _lib() -> Library:
     p, i = ctypes.c_void_p, ctypes.c_int
     return Library(SOURCE, {"ssd_scan_launch": [p] * 11 + [i] * 8 + [p]})
@@ -158,7 +157,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         f"one chunk's B, C and masked matrix in shared memory and its y in "
         f"registers (chunk x P <= 8192), so a long chunk can ask for more "
         f"than the card allows")
-    ssd_scan.launches += 1
+    count_launch(ssd_scan)
     return y, state
 
 

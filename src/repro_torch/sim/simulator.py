@@ -86,7 +86,8 @@ class Simulator:
         self.util_samples.append((t, self.policy.utilization()))
 
     def _start(self, job: Job, now: float, placement) -> None:
-        job.start = now
+        if job.start is None:
+            job.start = now
         job.placement_meta = placement.meta
         job.slowdown = placement.meta.get("slowdown_factor") or (
             self.broken_ring_slowdown if placement.broken_rings else 1.0)

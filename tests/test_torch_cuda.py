@@ -298,6 +298,124 @@ def test_cuda_schedules_match_numpy_on_card(card, policy, kw):
     assert tk.launch_counts()["fitmask_multibox"] > 0
 
 
+def test_launch_counts_exact_from_two_threads(card):
+    """Two threads x 200 K1 launches (the broker's two flush lanes) count
+    exactly 400, and every answer is right."""
+    import threading
+    occ, boxes = _case(7)
+    t = torch.from_numpy(occ).to(card)
+    want = tk.fitmask_multibox_plain(t, boxes)
+    tk.reset_launch_counts()
+    bad = []
+
+    def lane(_):
+        for _ in range(200):
+            if not torch.equal(tk.fitmask_multibox(t, boxes), want):
+                bad.append(1)
+
+    threads = [threading.Thread(target=lane, args=(i,), daemon=True)
+               for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    torch.cuda.synchronize()
+    assert not bad
+    assert tk.launch_counts()["fitmask_multibox"] == 400
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_broker_on_cuda_matches_numpy_under_interleaving(card, seed):
+    """The fleet broker on the ``cuda`` engine, two lanes, steppers with
+    random pauses: every answer equals the numpy engine's, the fused
+    bucketed launch answers the multibox flushes, and nothing fails
+    over."""
+    import threading
+    import time
+
+    from repro_torch.core.engineconfig import EngineConfig
+    from repro_torch.kernels.fitmask import ops as tops
+    from repro_torch.sim.fleet import Fleet
+
+    rng = np.random.default_rng(seed)
+    cell = tuple(int(v) for v in rng.integers(2, 9, size=3))
+    plans = []
+    for _ in range(4):
+        steps = []
+        for _s in range(int(rng.integers(3, 8))):
+            occ = rng.random((int(rng.integers(1, 9)),) + cell) < 0.4
+            boxes = tuple(tuple(int(v) for v in rng.integers(1, 5, size=3))
+                          for _ in range(int(rng.integers(1, 6))))
+            steps.append((occ, boxes if rng.random() < 0.75 else None))
+        plans.append(steps)
+    broker = Fleet(EngineConfig("cuda", device=card),
+                   timeout=0.002).broker
+    assert broker.max_inflight == 2
+    outs = [[] for _ in plans]
+    tk.reset_launch_counts()
+
+    def stepper(i):
+        r = np.random.default_rng(seed ^ (i + 1))
+        try:
+            for occ, boxes in plans[i]:
+                time.sleep(float(r.random()) * 0.002)
+                outs[i].append(broker.free_counts(occ) if boxes is None
+                               else broker.multibox(occ, boxes))
+        finally:
+            broker.deactivate()
+
+    for _ in plans:
+        broker.register()
+    threads = [threading.Thread(target=stepper, args=(i,), daemon=True)
+               for i in range(len(plans))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    oracle = tops.get_engine("numpy")
+    for steps, got in zip(plans, outs):
+        assert len(got) == len(steps)
+        for (occ, boxes), ans in zip(steps, got):
+            if boxes is None:
+                assert (ans == oracle.free_counts(occ)).all()
+            else:
+                assert ((ans != 0) == (oracle.multibox(occ, boxes) != 0)).all()
+    s = broker.stats
+    assert (s.engine_failovers, s.engine_retries, s.canary_checks) == (0, 0, 0)
+    counts = tk.launch_counts()
+    assert counts["fitmask_multibox_bucketed"] > 0
+    assert counts["fitmask_multibox"] == counts["fitmask_batched"] == 0
+
+
+def test_fleet_eval_on_cuda_matches_numpy(card):
+    """A small eval matrix through fleets on the card gives the per-task
+    numpy records, with batched calls and no failover."""
+    import json
+
+    from repro_torch.core.engineconfig import EngineConfig
+    from repro_torch.eval import EvalRunner, make_tasks
+
+    configs = [("RFold (4^3)", "rfold", dict(num_xpus=512, cube_n=4)),
+               ("Folding (8^3)", "folding", dict(dims=(8, 8, 8)))]
+    tasks = make_tasks(configs, runs=2, num_jobs=25, load=1.5, seed0=100)
+
+    def strip(records):
+        return json.dumps([{k: v for k, v in r.items() if k != "sim_s"}
+                           for r in records], sort_keys=True)
+
+    want = EvalRunner(workers=0, engine=EngineConfig(
+        "numpy", fleet_size=0)).run(tasks)
+    runner = EvalRunner(workers=0, engine=EngineConfig("cuda", device=card))
+    tk.reset_launch_counts()
+    got = runner.run(tasks)
+    assert strip(got) == strip(want)
+    broker = runner.last_stats["fleet"]["broker"]
+    assert broker["engine_failovers"] == 0 and broker["batched_calls"] > 0
+    assert tk.launch_counts()["fitmask_multibox_bucketed"] > 0
+
+
 # Tolerances (atol, rtol) of the sequence kernels against their plain
 # versions on the card: the fp32 ones differ only in the order of fp32
 # sums; bf16 inputs are compared on the bf16 outputs, one rounding (at

@@ -96,18 +96,47 @@ def test_simulator_and_metrics_match_reference(policy, kw, sim_kw):
         assert a.tobytes() == b.tobytes()
 
 
+def test_reused_job_list_keeps_its_first_start_as_the_reference_does():
+    """One job list run through rfold_be, FirstFit, Folding, Reconfig and
+    RFold in turn, in each package: a job that already carries a
+    ``start`` keeps it (``repro/sim/simulator.py``'s ``if job.start is
+    None``), so every schedule equals the reference's."""
+    cfg = dict(num_jobs=40, seed=5, cluster_xpus=512, size_max=512,
+               priority_levels=2)
+    ref_jobs = ref_gen.generate_trace(ref_gen.TraceConfig(**cfg))
+    jobs = jobs_from_numpy(*trace_arrays(ref_jobs))
+    runs = [("rfold_be", dict(num_xpus=512, cube_n=4)),
+            ("firstfit", dict(dims=(8, 8, 8))),
+            ("folding", dict(dims=(8, 8, 8))),
+            ("reconfig", dict(num_xpus=512, cube_n=4)),
+            ("rfold", dict(num_xpus=512, cube_n=4))]
+    starts = set()
+    for policy, kw in runs:
+        want = RefSimulator(ref_make_policy(policy, engine="numpy", **kw),
+                            ref_jobs).run()
+        got = Simulator(make_policy(policy, engine="numpy", **kw),
+                        jobs).run()
+        assert [(j.start, j.finish, j.dropped, j.slowdown)
+                for j in got.jobs] == \
+            [(j.start, j.finish, j.dropped, j.slowdown) for j in want.jobs]
+        starts.add(tuple(j.start for j in got.jobs))
+    assert len(starts) == 1    # every run kept the first run's starts
+
+
 def test_port_imports_no_jax_and_nothing_of_repro():
-    """Import every module of the port and chip_smoke in a fresh process;
-    neither JAX nor any ``repro`` module may be loaded."""
+    """Import every module of the port, its benches and chip_smoke in a
+    fresh process; neither JAX nor any ``repro`` module may be loaded."""
     code = """
 import pkgutil, sys
-import repro_torch
-for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
-    __import__(m.name)
+import benchmarks_torch, repro_torch
+for pkg in (repro_torch, benchmarks_torch):
+    for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        __import__(m.name)
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
-mods = sorted(n for n in sys.modules if n.startswith("repro_torch."))
+mods = sorted(n for n in sys.modules
+              if n.split(".")[0] in ("repro_torch", "benchmarks_torch"))
 print(len(mods))
 assert not bad, bad
 """
@@ -116,4 +145,4 @@ assert not bad, bad
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 57
