@@ -17,8 +17,9 @@ across the two packages, so a directory shared with ``repro`` would
 resume from the reference's records and never run the port); pass
 --fresh to discard checkpoints. Runner wall-clock stats land in
 ``experiments/paper_eval_torch_bench.json`` (--bench-out), never in
-the committed BENCH_*.json snapshots. ``--scenario`` is refused: the
-port has no chaos layer yet.
+the committed BENCH_*.json snapshots. ``--scenario node_churn`` (or
+another name of ``repro_torch.sim.scenarios``) runs the matrix on the
+degraded fabric.
 """
 from __future__ import annotations
 
@@ -66,10 +67,10 @@ def _configs_for(which: str):
 
 def _run_matrix(configs, runs: int, num_jobs: int, load: float,
                 seed0: int, workers, ckpt_dir, emit=print,
-                trace_kw: Dict = None, engine=None):
+                trace_kw: Dict = None, engine=None, scenario=None):
     from repro_torch.eval import EvalRunner, aggregate_by_label, make_tasks
     tasks = make_tasks(configs, runs, num_jobs, load, seed0,
-                       trace_kw=trace_kw)
+                       trace_kw=trace_kw, scenario=scenario)
     runner = EvalRunner(checkpoint_dir=ckpt_dir, workers=workers,
                         emit=emit, engine=engine)
     records = runner.run(tasks)
@@ -195,11 +196,15 @@ def main(argv=None) -> None:
                          "'philly'); expanded into concrete trace fields "
                          "so checkpoint fingerprints stay value-based")
     ap.add_argument("--scenario", type=str, default=None,
-                    help="refused: the port has no chaos layer yet")
+                    help="run the matrix under a named chaos scenario "
+                         "(repro_torch.sim.scenarios: node_churn, "
+                         "ocs_degraded, bursty, multi_tenant) — the "
+                         "degraded-fabric paper eval. Default: healthy "
+                         "baseline. Scenario runs fingerprint "
+                         "differently, so give them their own "
+                         "--ckpt-dir when checkpointing alongside the "
+                         "healthy sweep")
     args = ap.parse_args(argv)
-    if args.scenario:
-        ap.error("--scenario needs the chaos layer (sim/faults.py and "
-                 "sim/scenarios.py), which repro_torch does not have yet")
     if args.bench_out and os.path.basename(args.bench_out).startswith(
             "BENCH_"):
         ap.error("the committed BENCH_*.json snapshots are the reference "
@@ -207,6 +212,11 @@ def main(argv=None) -> None:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.engineconfig import EngineConfig
     from repro_torch.eval import PAPER_TABLE1, fig3, fig4, table1
+    if args.scenario:
+        from repro_torch.sim.scenarios import SCENARIOS
+        if args.scenario not in SCENARIOS:
+            ap.error(f"unknown scenario {args.scenario!r}; "
+                     f"have {sorted(SCENARIOS)}")
     trace_kw = None
     if args.trace_preset:
         from repro_torch.traces.generator import TRACE_PRESETS
@@ -231,7 +241,7 @@ def main(argv=None) -> None:
     aggs, stats, tasks = _run_matrix(_configs_for(args.which), runs, n,
                                      args.load, args.seed0, args.workers,
                                      ckpt_dir, trace_kw=trace_kw,
-                                     engine=engine)
+                                     engine=engine, scenario=args.scenario)
     if args.prune_ckpt and ckpt_dir and os.path.isdir(ckpt_dir):
         from repro_torch.eval import prune_checkpoints
         max_bytes = (args.ckpt_max_mb * 1024 * 1024

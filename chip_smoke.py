@@ -42,21 +42,36 @@
    (``mean_grids_per_call > 1``) with no failover and no canary check.
    One more run, 1 x 60 jobs on ``cuda`` with ``workers=2`` (spawned
    workers), must give the records of the same matrix at ``workers=0``.
-6. Sequence kernel phase: holds K4 (flash attention) and K5 (SSD scan)
+6. Scenario main path: the same eight configurations, 1 run x 200 jobs
+   (seed0 100), under each of the five named chaos scenarios
+   (``repro_torch.sim.scenarios``: healthy, node_churn, ocs_degraded,
+   bursty, multi_tenant) through ``EvalRunner`` at ``workers=0``: as
+   fleets on ``cuda`` (``fleet_size="auto"``), per task on ``cuda`` and
+   per task on ``numpy`` (first, and again last). Records (``sim_s``
+   aside, chaos blocks included) must be identical across them; healthy's summaries
+   must equal the scenario-free records'; node_churn, ocs_degraded and
+   multi_tenant must inject faults into every task and account for
+   every victim (migrated, preempted or killed; node_churn: none killed,
+   every fault repaired); the fused, K1, K2 and K3 launches must be
+   > 0, with no retry, failover or canary check. Then
+   ``benchmarks_torch/chaos_bench.py``'s matrix (5 scenarios x 5
+   policies at 512 XPUs, 120 jobs, each cell twice) on ``cuda`` against
+   ``numpy``: identical cells, deterministic, headline held.
+7. Sequence kernel phase: holds K4 (flash attention) and K5 (SSD scan)
    against their plain versions in fp32 and bf16, at the zamba2 prefill
    shapes and at edge cases (K5 with B and C per group, as the model
    hands them over), within stated tolerances, and times them beside
    their bounds, the earlier kernel's time and, for K4, PyTorch's SDPA.
-7. Serve main path, zamba2-1.2b at full width (38 layers, fp32, random
+8. Serve main path, zamba2-1.2b at full width (38 layers, fp32, random
    weights from seed 0): the prefill forward at B 2, S 4096 through the
    kernels (exactly 6 K4 and 38 K5 launches) against the plain path;
    128 decode steps against the prefill logits; and greedy serving
    through ``repro_torch.launch.serve`` at its default sizes.
-8. Prints one JSON line per the kernel table, then the result line.
+9. Prints one JSON line per the kernel table, then the result line.
 
 Launch counters are set to 0 just before each main path (placement,
-fleet, serve) and read just after; every kernel must have been launched
-on a path.
+fleet, each run of the scenario path, serve) and read just after; every
+kernel must have been launched on a path.
 
 Any failure raises and exits non-zero. With no CUDA device, or without
 the repository's ``src/repro_torch`` beside it, it exits non-zero and
@@ -100,6 +115,11 @@ OFF_PATH = ()
 # smaller matrix that runs again with spawned workers.
 FLEET_RUNS, FLEET_JOBS, FLEET_SEED0 = 3, 200, 100
 SPAWN_RUNS, SPAWN_JOBS, SPAWN_WORKERS = 1, 60, 2
+# The scenario phase: the fleet phase's configurations and seed0 under
+# each named chaos scenario, and chaos_bench's matrix at its default
+# size (120-job cells).
+SCENARIO_RUNS, SCENARIO_JOBS = 1, 200
+CHAOS_BENCH_JOBS, CHAOS_BENCH_SEED = 120, 0
 # Simulators a fleet stacks on B at that size (fleet_size "auto" with 24
 # tasks in four grid buckets at workers=0), for the kernel phase.
 FLEET_SIZE = 6
@@ -615,6 +635,133 @@ def fleet_phase(kernel, device):
     return launches
 
 
+def scenario_phase(kernel, device):
+    """The eval matrix under each named chaos scenario, as fleets and per
+    task on the card against per task on numpy; then chaos_bench's
+    matrix on the card against numpy. Returns the fitmask launches of
+    the two ``cuda`` eval runs, summed."""
+    from benchmarks_torch import chaos_bench
+    from repro_torch.core.engineconfig import EngineConfig
+    from repro_torch.eval import EvalRunner, make_tasks
+    from repro_torch.sim.scenarios import SCENARIOS
+
+    names = sorted(SCENARIOS)
+    tasks = [t for name in names for t in make_tasks(
+        CONFIGS, SCENARIO_RUNS, SCENARIO_JOBS, LOAD, FLEET_SEED0,
+        scenario=name)]
+    plain = make_tasks(CONFIGS, SCENARIO_RUNS, SCENARIO_JOBS, LOAD,
+                       FLEET_SEED0)
+    seq = EngineConfig("numpy", fleet_size=0)
+
+    def run(cfg, todo):
+        runner = EvalRunner(workers=0, engine=cfg)
+        kernel.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = runner.run(todo)
+        torch.cuda.synchronize()
+        return records, time.perf_counter() - t0, runner, \
+            kernel.launch_counts()
+
+    print("# scenario main path: %d configs x %d scenarios x %d run x %d "
+          "jobs, seed0 %d, target_load %s, workers 0"
+          % (len(CONFIGS), len(names), SCENARIO_RUNS, SCENARIO_JOBS,
+             FLEET_SEED0, LOAD))
+    want, numpy_s, _, _ = run(seq, tasks)
+    fleet, fleet_s, fleet_run, fleet_n = run(
+        EngineConfig("cuda", device=device), tasks)
+    per_task, per_task_s, _, per_task_n = run(
+        EngineConfig("cuda", device=device, fleet_size=0), tasks)
+    # numpy again, last: the first matrix in a process pays cache fills
+    again, numpy_again_s, _, _ = run(seq, tasks)
+    for name, recs in (("cuda fleet", fleet), ("cuda per task", per_task),
+                       ("numpy per task, again", again)):
+        if strip_timing(recs) != strip_timing(want):
+            raise AssertionError(f"scenarios, {name}: records differ from "
+                                 "per-task numpy's")
+    healthy = {(r["label"], r["run_idx"]): r["summary"] for r in want
+               if r["scenario"] == "healthy"}
+    for r in run(seq, plain)[0]:
+        if json.dumps(r["summary"], sort_keys=True) != json.dumps(
+                healthy[(r["label"], r["run_idx"])], sort_keys=True):
+            raise AssertionError(f"healthy {r['label']}: summary differs "
+                                 "from the scenario-free record's")
+    print("scenario,config,faults,repairs,victims,migrated,preempted,"
+          "killed,jcr,util_overall,dip_depth,recovered")
+    for r in want:
+        ch = r["chaos"]
+        print(f"scenario,{r['scenario']} {r['label']},{ch['faults']},"
+              f"{ch['repairs']},{ch['victims']},{ch['migrated']},"
+              f"{ch['preempted']},{ch['killed']},{r['summary']['jcr']},"
+              f"{ch['util_overall']},{ch['dip_depth']},{ch['recovered']}")
+        if r["scenario"] not in ("node_churn", "ocs_degraded",
+                                 "multi_tenant"):
+            continue
+        moved = ch["migrated"] + ch["preempted"] + ch["killed"]
+        # multi_tenant's priority preemptions add evictions no fault made
+        lost = (moved < ch["victims"] if r["scenario"] == "multi_tenant"
+                else moved != ch["victims"])
+        if ch["faults"] == 0 or lost:
+            raise AssertionError(f"{r['scenario']} {r['label']}: {ch}")
+        if r["scenario"] == "node_churn" and (
+                ch["killed"] or ch["repairs"] != ch["faults"]):
+            raise AssertionError(f"node_churn {r['label']}: {ch}")
+    fl = fleet_run.last_stats["fleet"]
+    b = fl["broker"]
+    print("scenario_fleet,fleets,size,flushes,flush_all_parked,"
+          "flush_timeout,mean_grids_per_call,park_s,engine_s")
+    print(f"scenario_fleet,{fl['fleets']},{fl['size']},{b['flushes']},"
+          f"{b['flush_all_parked']},{b['flush_timeout']},"
+          f"{b['mean_grids_per_call']},{b['park_s']},{b['engine_s']}")
+    if b["engine_failovers"] or b["canary_checks"] or b["engine_retries"]:
+        raise AssertionError(f"the scenario fleet failed over: {b}")
+    launches = {k: fleet_n[k] + per_task_n[k] for k in fleet_n}
+    print("scenario_launches,run,fused_launches,k1_launches,k2_launches,"
+          "k3_launches")
+    for name, n in (("cuda fleet", fleet_n), ("cuda per task", per_task_n)):
+        print(f"scenario_launches,{name},{n['fitmask_multibox_bucketed']},"
+              f"{n['fitmask_multibox']},{n['occupancy_counts']},"
+              f"{n['fitmask_batched']}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the scenario path never launched {name}")
+
+    print("# chaos_bench matrix: %d scenarios x %d policies at 512 XPUs, "
+          "%d jobs, seed %d, every cell twice"
+          % (len(names), len(chaos_bench.POLICY_CONFIGS), CHAOS_BENCH_JOBS,
+             CHAOS_BENCH_SEED))
+    t0 = time.perf_counter()
+    bench_cuda = chaos_bench.run_matrix(
+        names, CHAOS_BENCH_JOBS, CHAOS_BENCH_SEED,
+        EngineConfig("cuda", device=device), emit=lambda _: None)
+    torch.cuda.synchronize()
+    bench_cuda_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bench_numpy = chaos_bench.run_matrix(
+        names, CHAOS_BENCH_JOBS, CHAOS_BENCH_SEED, EngineConfig("numpy"),
+        emit=lambda _: None)
+    bench_numpy_s = time.perf_counter() - t0
+
+    def cells(matrix):
+        return json.dumps({sc: {k: {f: v for f, v in cell.items()
+                                    if f != "cell_s"}
+                                for k, cell in row.items()}
+                           for sc, row in matrix.items()}, sort_keys=True)
+
+    head = chaos_bench.headline_from(bench_cuda, 0.02)
+    print(f"chaos_bench,headline,{json.dumps(head, sort_keys=True)}")
+    if cells(bench_cuda) != cells(bench_numpy):
+        raise AssertionError("chaos_bench: cuda cells differ from numpy's")
+    if not (head["deterministic"] and head["pass"]):
+        raise AssertionError(f"chaos_bench on cuda: {head}")
+    print("# scenario_walls: numpy per task ran first and again last")
+    print("scenario_walls,cuda_fleet_s,cuda_per_task_s,numpy_per_task_s,"
+          "numpy_per_task_last_s,chaos_bench_cuda_s,chaos_bench_numpy_s")
+    print(f"scenario_walls,{fleet_s},{per_task_s},{numpy_s},{numpy_again_s},"
+          f"{bench_cuda_s},{bench_numpy_s}")
+    return launches
+
+
 def build_all():
     """One nvcc process per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1025,7 +1172,11 @@ def main() -> int:
     t0 = time.perf_counter()
     fleet = fleet_phase(kernel, device)
     phase_s["fleet main path"] = time.perf_counter() - t0
-    by_path = {name: {"placement": placement[name], "fleet": fleet[name]}
+    t0 = time.perf_counter()
+    scenario = scenario_phase(kernel, device)
+    phase_s["scenario main path"] = time.perf_counter() - t0
+    by_path = {name: {"placement": placement[name], "fleet": fleet[name],
+                      "scenario": scenario[name]}
                for name in placement}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
     for name, count in launches.items():

@@ -139,9 +139,14 @@ class _StaticBase(PlacementPolicy):
                     e = fold.embed((i, j, k))
                     coords.append(tuple(o + v for o, v in zip(origin, e)))
         # Links: ring edges that are physically realizable (direct or via
-        # an available wrap link); broken closures consume no link.
+        # an available wrap link); broken closures consume no link. A
+        # cut link (chaos layer) cannot be claimed — the ring routes
+        # around it, so its axis joins the broken set (same 17% slowdown
+        # the paper charges any broken ring).
         wrap = self._wrap_for_box(fold.box, origin)
         links = []
+        cut = self.torus.cut_links
+        extra_broken: set = set()
         for (u, v) in fold_links(fold, origin, self.torus.dims):
             if is_torus_neighbor(u, v, self.torus.dims, self.torus.wrap_flags()):
                 # physical only if inside box or via full-span wrap
@@ -149,7 +154,14 @@ class _StaticBase(PlacementPolicy):
                 if direct or any(
                         wrap[ax] and abs(u[ax] - v[ax]) == self.torus.dims[ax] - 1
                         for ax in range(3)):
-                    links.append(canon_link(u, v))
+                    l = canon_link(u, v)
+                    if cut and l in cut:
+                        extra_broken.add(next(
+                            ax for ax in range(3) if u[ax] != v[ax]))
+                    else:
+                        links.append(l)
+        if extra_broken:
+            broken = tuple(sorted(set(broken) | extra_broken))
         meta = {"fold": str(fold), "kind": fold.kind, "box": fold.box,
                 "origin": origin, "broken_rings": broken}
         self.torus.commit(job_id, coords, links, meta)

@@ -31,7 +31,12 @@ Listener = Callable[["TopologyEvent"], None]
 class TopologyEvent:
     """One committed topology change.
 
-    ``kind``          — ``"setup"`` | ``"release"``.
+    ``kind``          — ``"setup"`` | ``"release"`` | ``"fault"`` |
+                        ``"repair"``. The fault/repair kinds are emitted
+                        by the chaos layer (``repro_torch.sim.faults``)
+                        when nodes, links or OCS ports fail or come
+                        back; their ``job_id`` is ``-1`` (no owning job)
+                        and ``detail`` carries the fault kind and targets.
     ``job_id``        — the job whose allocation changed.
     ``topology``      — ``"static"`` | ``"reconfig"``.
     ``reconfigured``  — OCS wiring changed (multi-cube chain or wrap

@@ -56,6 +56,7 @@ from . import fitmask
 from .engineconfig import EngineConfig
 from .folding import Fold, WrapFlags, verify_fold
 from .geometry import Coord, Dims, volume
+from .torus import FaultConflictError
 
 Slice3 = Tuple[Tuple[int, int], Tuple[int, int], Tuple[int, int]]  # half-open
 
@@ -297,6 +298,15 @@ class ReconfigTorus:
         self.dedicated = np.full(self.num_cubes, -1, dtype=np.int64)
         self.allocations: Dict[int, List[Piece]] = {}
         self.alloc_meta: Dict[int, dict] = {}
+        # Fault state (chaos layer): failed cells are marked busy in
+        # ``occ`` so every fit mask routes around them; ``ocs_ok``
+        # tracks per-cube OCS-port health — a cube with a dead port is
+        # detached from the switch fabric, so it cannot join any
+        # placement that needs OCS wiring (multi-cube chains or
+        # wrap-ring closures) but still hosts OCS-free sub-blocks.
+        self.failed = np.zeros(self.occ.shape, dtype=bool)
+        self.num_failed = 0
+        self.ocs_ok = np.ones(self.num_cubes, dtype=bool)
         # Occupancy epoch: bumped on every commit/release/scatter. All
         # occupancy-derived state consumed by ``place_fold`` is cached
         # per epoch and shared across every fold/offset query in one
@@ -424,10 +434,13 @@ class ReconfigTorus:
 
     @property
     def busy_xpus(self) -> int:
-        return self._busy
+        """XPUs owned by jobs (failed cells occupy the grid but are
+        not *busy* — utilization dips, it does not lie)."""
+        return self._busy - self.num_failed
 
     @property
     def free_xpus(self) -> int:
+        """XPUs actually placeable right now (excludes failed cells)."""
         return self.num_xpus - self._busy
 
     def utilization(self) -> float:
@@ -519,21 +532,26 @@ class ReconfigTorus:
         sub = self.occ[:, x0:x1, y0:y1, z0:z1]
         return ~sub.any(axis=(1, 2, 3))
 
-    def _cands_for(self, local: Slice3, chained: bool) -> List[int]:
+    def _cands_for(self, local: Slice3, chained: bool,
+                   multi: bool = False) -> List[int]:
         """Cube ids eligible for a piece, pre-sorted by the best-fit key
         (stable, index tiebreak) — the per-epoch stable argsort of the
         key, filtered to eligible cubes, which equals sorting the
         eligible ids by ``(key, id)``. Computed once per (local,
-        chained) per epoch; returned as a plain list (the assignment
-        scan is a tight python loop). Callers hold the epoch current
-        (``place_fold`` refreshes before searching)."""
-        key = (local, chained)
+        chained, multi) per epoch; returned as a plain list (the
+        assignment scan is a tight python loop). Callers hold the epoch
+        current (``place_fold`` refreshes before searching). ``multi``
+        marks pieces of a multi-cube plan: chaining rides the OCS
+        fabric, so cubes with a failed OCS port are excluded."""
+        key = (local, chained, multi)
         arr = self._sorted_cands.get(key)
         if arr is None:
             if chained:
                 mask = self._cube_empty & (self.dedicated < 0)
             else:
                 mask = self._block_free_mask(local) & (self.dedicated < 0)
+            if multi and not self.ocs_ok.all():
+                mask = mask & self.ocs_ok
             go = self._global_order
             arr = go[mask[go]].tolist()
             self._sorted_cands[key] = arr
@@ -644,6 +662,12 @@ class ReconfigTorus:
             return None
         offs = tab.offs_arr
         sub = sub[elig][:, offs[:, 0], offs[:, 1], offs[:, 2]]  # (E, O)
+        if not self.ocs_ok.all():
+            # Wrap-ring closures ride the OCS fabric even inside one
+            # cube: offsets that close a ring (links > 0) are barred
+            # from cubes with a failed OCS port.
+            need_ocs = tab.links > 0
+            sub = sub & (self.ocs_ok[elig][:, None] | ~need_ocs[None, :])
         feas = sub.any(axis=0)
         if not feas.any():
             return None
@@ -673,13 +697,14 @@ class ReconfigTorus:
         offsets = tab.offsets[t]
         pieces_spec, order, cube_grid = _pieces_cached(fold.box, offsets,
                                                        self.cube_n)
-        chained = len(pieces_spec) > 1 and self.dedicate_chained
+        multi = len(pieces_spec) > 1
+        chained = multi and self.dedicate_chained
         taken: set = set()
         assignment: Dict[int, int] = {}
         for idx in order:
             local = pieces_spec[idx][1]
             chosen = -1
-            for cid in self._cands_for(local, chained):
+            for cid in self._cands_for(local, chained, multi):
                 if cid not in taken:
                     chosen = cid
                     break
@@ -747,6 +772,9 @@ class ReconfigTorus:
             wrap = tuple(
                 offsets[ax] == 0 and box[ax] == cube_grid[ax] * n
                 for ax in range(3))
+            # OCS dependence is knowable before assignment: chains
+            # (multi-cube) and wrap closures both ride the fabric.
+            needs_ocs = multi or any(wrap)
             # Assign physical cubes: biggest pieces first, best-fit
             # (prefer partially-used cubes with least leftover).
             order = sorted(range(len(pieces_spec)),
@@ -766,6 +794,8 @@ class ReconfigTorus:
                     # per-face-position OCS: shareable; sub-block free
                     mask = (self._block_free_mask_naive(local)
                             & (self.dedicated < 0) & ~taken)
+                if needs_ocs:
+                    mask = mask & self.ocs_ok
                 if not mask.any():
                     ok = False
                     break
@@ -888,6 +918,128 @@ class ReconfigTorus:
                 detail={"cubes": sorted({c[0] for c in cells}),
                         **self.alloc_meta[job_id]}))
 
+    # -- fault injection (chaos layer) ---------------------------------
+    def jobs_on(self, cells) -> List[int]:
+        """Job ids whose pieces cover any of the (cube, x, y, z) cells
+        (fault victims), sorted for determinism."""
+        targets = {tuple(int(v) for v in c) for c in cells}
+        hit = set()
+        for jid, pieces in self.allocations.items():
+            for p in pieces:
+                (x0, x1), (y0, y1), (z0, z1) = p.local
+                if any(c[0] == p.cube_id and x0 <= c[1] < x1
+                       and y0 <= c[2] < y1 and z0 <= c[3] < z1
+                       for c in targets):
+                    hit.add(jid)
+                    break
+        return sorted(hit)
+
+    def jobs_using_ocs(self, cube_ids) -> List[int]:
+        """Job ids whose OCS wiring rides any of the given cubes: a job
+        with ``ocs_links > 0`` (chain or wrap closure) touching the
+        cube loses its virtual topology when the port dies."""
+        cubes = {int(c) for c in cube_ids}
+        hit = set()
+        for jid, pieces in self.allocations.items():
+            if int(self.alloc_meta.get(jid, {}).get("ocs_links", 0) or 0) <= 0:
+                continue
+            if any(p.cube_id in cubes for p in pieces):
+                hit.add(jid)
+        return sorted(hit)
+
+    def fail_cells(self, cells) -> List[Tuple[int, int, int, int]]:
+        """Mark (cube, x, y, z) cells failed: they read busy to every
+        fit mask but belong to no job. Already-failed cells are skipped
+        (idempotent); a still-owned cell raises
+        :class:`FaultConflictError` — evict victims first."""
+        applied: List[Tuple[int, int, int, int]] = []
+        for c in cells:
+            c = tuple(int(v) for v in c)
+            if self.failed[c]:
+                continue
+            if self.occ[c]:
+                raise FaultConflictError(
+                    f"cell {c} still owned by a job; evict before failing")
+            self.failed[c] = True
+            self.occ[c] = True
+            applied.append(c)
+        if applied:
+            self._mark_dirty({c[0] for c in applied})
+            self._busy += len(applied)
+            self.num_failed += len(applied)
+            if self.listeners:
+                _events.emit(self.listeners, _events.TopologyEvent(
+                    kind="fault", job_id=-1, topology="reconfig",
+                    detail={"fault": "node", "targets": applied}))
+        return applied
+
+    def repair_cells(self, cells) -> List[Tuple[int, int, int, int]]:
+        """Bring failed cells back; repairing a never-failed cell is a
+        no-op. Returns the cells actually repaired."""
+        applied: List[Tuple[int, int, int, int]] = []
+        for c in cells:
+            c = tuple(int(v) for v in c)
+            if not self.failed[c]:
+                continue
+            self.failed[c] = False
+            self.occ[c] = False
+            applied.append(c)
+        if applied:
+            self._mark_dirty({c[0] for c in applied})
+            self._busy -= len(applied)
+            self.num_failed -= len(applied)
+            if self.listeners:
+                _events.emit(self.listeners, _events.TopologyEvent(
+                    kind="repair", job_id=-1, topology="reconfig",
+                    detail={"fault": "node", "targets": applied}))
+        return applied
+
+    def fail_ocs_port(self, cube_ids) -> List[int]:
+        """Detach cubes from the OCS fabric (dead switch port): they
+        can no longer join multi-cube chains or close wrap rings, but
+        keep hosting OCS-free sub-blocks. Raises
+        :class:`FaultConflictError` while a job's wiring still rides
+        the cube — evict via :meth:`jobs_using_ocs` first."""
+        applied: List[int] = []
+        for cid in cube_ids:
+            cid = int(cid)
+            if not self.ocs_ok[cid]:
+                continue
+            users = self.jobs_using_ocs([cid])
+            if users:
+                raise FaultConflictError(
+                    f"cube {cid} OCS wiring still used by jobs {users}; "
+                    "evict before failing the port")
+            self.ocs_ok[cid] = False
+            applied.append(cid)
+        if applied:
+            self._mark_dirty(())   # resets per-epoch candidate caches
+            if self.listeners:
+                _events.emit(self.listeners, _events.TopologyEvent(
+                    kind="fault", job_id=-1, topology="reconfig",
+                    reconfigured=True,
+                    detail={"fault": "ocs_port", "targets": applied}))
+        return applied
+
+    def repair_ocs_port(self, cube_ids) -> List[int]:
+        """Re-attach cubes to the OCS fabric; never-failed ports are a
+        no-op. Returns the cubes actually repaired."""
+        applied: List[int] = []
+        for cid in cube_ids:
+            cid = int(cid)
+            if self.ocs_ok[cid]:
+                continue
+            self.ocs_ok[cid] = True
+            applied.append(cid)
+        if applied:
+            self._mark_dirty(())
+            if self.listeners:
+                _events.emit(self.listeners, _events.TopologyEvent(
+                    kind="repair", job_id=-1, topology="reconfig",
+                    reconfigured=True,
+                    detail={"fault": "ocs_port", "targets": applied}))
+        return applied
+
     # ------------------------------------------------------------------
     def check_invariants(self) -> None:
         ref = np.zeros_like(self.occ, dtype=np.int64)
@@ -897,8 +1049,12 @@ class ReconfigTorus:
                 ref[p.cube_id, x0:x1, y0:y1, z0:z1] += 1
         if (ref > 1).any():
             raise AssertionError("XPU double-booked across cubes")
-        if not ((ref == 1) == self.occ).all():
+        if (ref[self.failed] > 0).any():
+            raise AssertionError("failed cell owned by a job")
+        if not (((ref == 1) | self.failed) == self.occ).all():
             raise AssertionError("cube occupancy out of sync")
+        if self.num_failed != int(self.failed.sum()):
+            raise AssertionError("failed counter out of sync")
         ded = np.full(self.num_cubes, -1, dtype=np.int64)
         for jid, pieces in self.allocations.items():
             if len(pieces) > 1 and self.dedicate_chained:

@@ -21,6 +21,21 @@ from .geometry import Coord, Dims, is_torus_neighbor, iter_box, volume
 
 Link = Tuple[Coord, Coord]
 
+# ``owner`` sentinel for a failed XPU: the cell is marked busy in the
+# occupancy grid (so every fitmask engine naturally routes around it)
+# but belongs to no job.
+FAILED = -2
+
+
+class FaultConflictError(RuntimeError):
+    """A fault was injected into a resource still owned by a job.
+
+    The orchestrator (``repro_torch.sim.faults`` / a scheduler service)
+    must evict victims *before* applying the fault to the model — this
+    error is the defense-in-depth backstop that turns "silent
+    corruption" into a loud failure."""
+
+
 def canon_link(u: Coord, v: Coord) -> Link:
     return (u, v) if u <= v else (v, u)
 
@@ -78,6 +93,14 @@ class StaticTorus:
         self.owner = np.full(self.dims, -1, dtype=np.int64)
         self.link_owner: Dict[Link, int] = {}
         self.allocations: Dict[int, Allocation] = {}
+        # Fault state (chaos layer): failed XPUs are marked busy in
+        # ``occ`` with ``owner == FAILED`` so the whole fitmask stack
+        # avoids them without a second mask; cut links cannot be
+        # claimed (the allocator routes the ring around them as an
+        # extra broken axis).
+        self.failed = np.zeros(self.dims, dtype=bool)
+        self.num_failed = 0
+        self.cut_links: set = set()
         # Occupancy epoch: bumped on every commit/release. Derived state
         # (integral image, per-box fit answers, busy count) is cached per
         # epoch so one allocator step reuses a single cumsum across all
@@ -181,10 +204,13 @@ class StaticTorus:
 
     @property
     def busy_xpus(self) -> int:
-        return self._busy
+        """XPUs owned by jobs (failed cells occupy the grid but are
+        not *busy* — utilization dips, it does not lie)."""
+        return self._busy - self.num_failed
 
     @property
     def free_xpus(self) -> int:
+        """XPUs actually placeable right now (excludes failed cells)."""
         return self.num_xpus - self._busy
 
     def utilization(self) -> float:
@@ -278,6 +304,8 @@ class StaticTorus:
             if l in self.link_owner:
                 raise ValueError(
                     f"link {l} already owned by job {self.link_owner[l]}")
+            if l in self.cut_links:
+                raise ValueError(f"link {l} is cut (fault injected)")
         for c in coords:
             self.occ[c] = True
             self.owner[c] = job_id
@@ -317,6 +345,106 @@ class StaticTorus:
                 detail={"num_xpus": len(alloc.coords),
                         "num_links": len(alloc.links)}))
 
+    # -- fault injection (chaos layer) ---------------------------------
+    def jobs_on(self, coords: Iterable[Coord]) -> List[int]:
+        """Job ids allocated on any of ``coords`` (fault victims),
+        sorted for determinism."""
+        return sorted({int(self.owner[tuple(c)]) for c in coords
+                       if self.owner[tuple(c)] >= 0})
+
+    def link_jobs(self, links: Iterable[Link]) -> List[int]:
+        """Job ids owning any of ``links`` (link-cut victims)."""
+        return sorted({self.link_owner[l] for l in links
+                       if l in self.link_owner})
+
+    def fail_nodes(self, coords: Iterable[Coord]) -> List[Coord]:
+        """Mark XPUs failed. Returns the coords actually transitioned
+        (already-failed cells are skipped — idempotent). Raises
+        :class:`FaultConflictError` if any cell is still job-owned:
+        the orchestrator must evict victims first."""
+        applied: List[Coord] = []
+        for c in coords:
+            c = tuple(int(v) for v in c)
+            if self.failed[c]:
+                continue
+            if self.owner[c] >= 0:
+                raise FaultConflictError(
+                    f"XPU {c} still owned by job {self.owner[c]}; "
+                    "evict before failing")
+            self.failed[c] = True
+            self.occ[c] = True
+            self.owner[c] = FAILED
+            applied.append(c)
+        if applied:
+            self._epoch += 1
+            self._busy += len(applied)
+            self.num_failed += len(applied)
+            if self.listeners:
+                _events.emit(self.listeners, _events.TopologyEvent(
+                    kind="fault", job_id=-1, topology="static",
+                    detail={"fault": "node", "targets": applied}))
+        return applied
+
+    def repair_nodes(self, coords: Iterable[Coord]) -> List[Coord]:
+        """Bring failed XPUs back. Repairing a never-failed cell is a
+        no-op; returns the coords actually repaired."""
+        applied: List[Coord] = []
+        for c in coords:
+            c = tuple(int(v) for v in c)
+            if not self.failed[c]:
+                continue
+            self.failed[c] = False
+            self.occ[c] = False
+            self.owner[c] = -1
+            applied.append(c)
+        if applied:
+            self._epoch += 1
+            self._busy -= len(applied)
+            self.num_failed -= len(applied)
+            if self.listeners:
+                _events.emit(self.listeners, _events.TopologyEvent(
+                    kind="repair", job_id=-1, topology="static",
+                    detail={"fault": "node", "targets": applied}))
+        return applied
+
+    def cut_link(self, u: Coord, v: Coord) -> bool:
+        """Cut one torus link. Returns False if already cut (no-op).
+        Raises :class:`FaultConflictError` if a job owns the link."""
+        u = tuple(int(x) for x in u)
+        v = tuple(int(x) for x in v)
+        if not is_torus_neighbor(u, v, self.dims, self.wrap_flags()):
+            raise ValueError(f"{u}->{v} is not a torus link")
+        l = canon_link(u, v)
+        if l in self.cut_links:
+            return False
+        if l in self.link_owner:
+            raise FaultConflictError(
+                f"link {l} still owned by job {self.link_owner[l]}; "
+                "evict before cutting")
+        self.cut_links.add(l)
+        self._epoch += 1
+        if self.listeners:
+            _events.emit(self.listeners, _events.TopologyEvent(
+                kind="fault", job_id=-1, topology="static",
+                detail={"fault": "link", "targets": [l]}))
+        return True
+
+    def repair_link(self, u: Coord, v: Coord) -> bool:
+        """Restore a cut link; no-op (False) if it was never cut."""
+        l = canon_link(tuple(int(x) for x in u), tuple(int(x) for x in v))
+        if l not in self.cut_links:
+            return False
+        self.cut_links.discard(l)
+        self._epoch += 1
+        if self.listeners:
+            _events.emit(self.listeners, _events.TopologyEvent(
+                kind="repair", job_id=-1, topology="static",
+                detail={"fault": "link", "targets": [l]}))
+        return True
+
+    def link_failed(self, l: Link) -> bool:
+        return l in self.cut_links
+
     # ------------------------------------------------------------------
     def check_invariants(self) -> None:
         """Exclusivity invariants (used by property tests)."""
@@ -326,8 +454,14 @@ class StaticTorus:
                 owned[c] += 1
         if (owned > 1).any():
             raise AssertionError("XPU double-booked")
-        if not ((owned == 1) == self.occ).all():
+        if (owned[self.failed] > 0).any():
+            raise AssertionError("failed XPU owned by a job")
+        if not (((owned == 1) | self.failed) == self.occ).all():
             raise AssertionError("occupancy grid out of sync")
+        if not (self.owner[self.failed] == FAILED).all():
+            raise AssertionError("failed cells must carry the FAILED owner")
+        if self.num_failed != int(self.failed.sum()):
+            raise AssertionError("failed counter out of sync")
         link_counts: Dict[Link, int] = {}
         for a in self.allocations.values():
             for l in a.links:

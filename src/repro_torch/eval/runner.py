@@ -82,10 +82,9 @@ class EvalTask:
     load: float = 1.5
     trace_kw: Dict = field(default_factory=dict)   # extra TraceConfig fields
     sim_kw: Dict = field(default_factory=dict)     # extra Simulator kwargs
-    # Named chaos scenario to run this task under. Kept so that
-    # fingerprints stay equal to the reference's; the port has no chaos
-    # layer yet, so run_task refuses a task that names one. None =
-    # healthy.
+    # Named chaos scenario (repro_torch.sim.scenarios) to run this task
+    # under: its trace/fault/sim overrides are applied worker-side and
+    # the record gains the chaos degradation block. None = healthy.
     scenario: Optional[str] = None
 
     def fingerprint(self) -> str:
@@ -245,10 +244,6 @@ def run_task(task: EvalTask, mask_client=None, engine=None) -> Dict:
     ``policy_kw`` names one: the inline path's, and the one its empty
     clones use. Either way the record is byte-identical apart from
     ``sim_s``.
-
-    A task with a ``scenario`` raises ``NotImplementedError``: it needs
-    the chaos layer (fault streams and scenarios), which the port does
-    not have yet, and is never run without its faults.
     """
     from repro_torch.core.allocator import make_policy
     from repro_torch.core.engineconfig import EngineConfig
@@ -256,23 +251,36 @@ def run_task(task: EvalTask, mask_client=None, engine=None) -> Dict:
     from repro_torch.sim.simulator import Simulator
     from repro_torch.traces.generator import TraceConfig, generate_trace
 
+    sc = None
     if task.scenario is not None:
-        raise NotImplementedError(
-            f"task {task.label!r} runs under scenario {task.scenario!r}; "
-            "scenarios need the chaos layer (sim/faults.py and "
-            "sim/scenarios.py), which repro_torch does not have yet")
+        from repro_torch.sim.scenarios import SCENARIOS
+        sc = SCENARIOS[task.scenario]
     cfg = TraceConfig(num_jobs=task.num_jobs, seed=task.seed,
-                      target_load=task.load, **task.trace_kw)
+                      target_load=task.load,
+                      **{**task.trace_kw, **(sc.trace_kw if sc else {})})
     jobs = generate_trace(cfg)
     policy_kw = dict(task.policy_kw)
     if "engine" not in policy_kw and "fitmask_engine" not in policy_kw:
         policy_kw["engine"] = EngineConfig.coerce(engine)
     policy = make_policy(task.policy, mask_client=mask_client, **policy_kw)
+    sim_kw = dict(task.sim_kw)
+    if sc is not None:
+        # Scenario cells inject the same deterministic fault stream
+        # run_scenario would (seed derivation shared), and watch it
+        # with a chaos observer for the degradation block.
+        from repro_torch.sim.faults import ChaosObserver
+        from repro_torch.sim.scenarios import fault_schedule
+        model = getattr(policy, "cluster", None)
+        if model is None:
+            model = policy.torus
+        sim_kw.update(sc.sim_kw)
+        sim_kw["faults"] = fault_schedule(sc, model, jobs, task.seed)
+        sim_kw["observer"] = ChaosObserver()
     t0 = time.perf_counter()
-    res = Simulator(policy, jobs, **task.sim_kw).run()
+    res = Simulator(policy, jobs, **sim_kw).run()
     wall = time.perf_counter() - t0
     levels, cdf = utilization_cdf(res)
-    return {
+    rec = {
         "fingerprint": task.fingerprint(),
         "label": task.label,
         "run_idx": task.run_idx,
@@ -282,6 +290,10 @@ def run_task(task: EvalTask, mask_client=None, engine=None) -> Dict:
         "cdf": [float(x) for x in cdf],
         "sim_s": round(wall, 4),
     }
+    if sc is not None:
+        rec["scenario"] = sc.name
+        rec["chaos"] = res.chaos
+    return rec
 
 
 # -- fleet path --------------------------------------------------------

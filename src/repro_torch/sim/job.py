@@ -16,9 +16,8 @@ class Job:
     duration: float           # ideal contention-free runtime (seconds)
     shape: JobShape
 
-    # Multi-tenant priority tier drawn by the trace generator (larger =
-    # more important); carried with the trace, not consulted by this
-    # simulator's FIFO admission.
+    # Multi-tenant priority (chaos layer): larger = more important;
+    # only consulted when the simulator runs with priority preemption.
     priority: int = 0
 
     # -- filled by the simulator --
@@ -27,6 +26,10 @@ class Job:
     dropped: bool = False
     slowdown: float = 1.0
     placement_meta: dict = field(default_factory=dict)
+    # -- chaos bookkeeping (fault injection / preemption) --
+    preemptions: int = 0      # evicted and re-queued
+    migrations: int = 0       # evicted and immediately re-placed
+    remaining: Optional[float] = None  # ideal work left after eviction
 
     @property
     def size(self) -> int:

@@ -1,8 +1,8 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
 against their plain PyTorch versions on the card, the placement loop
-through the ``cuda`` engine against the host ``numpy`` engine, and the
-zamba2 smoke model's forward through the kernels against its plain
-path.
+and the chaos scenarios through the ``cuda`` engine against the host
+``numpy`` engine, and the zamba2 smoke model's forward through the
+kernels against its plain path.
 Every test is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor ``repro``, so it also runs where only the
 port's requirements are installed:
@@ -414,6 +414,33 @@ def test_fleet_eval_on_cuda_matches_numpy(card):
     broker = runner.last_stats["fleet"]["broker"]
     assert broker["engine_failovers"] == 0 and broker["batched_calls"] > 0
     assert tk.launch_counts()["fitmask_multibox_bucketed"] > 0
+
+
+def test_scenarios_on_cuda_match_numpy(card):
+    """node_churn and ocs_degraded on RFold 4^3 at 512 XPUs: the cuda
+    engine's records equal the numpy engine's, faults injected, with K1
+    and K2 launched. Failed cells are busy cells of the grids the
+    kernels read; a dead OCS port only filters cubes on the host."""
+    import json
+
+    from repro_torch.core.engineconfig import EngineConfig
+    from repro_torch.sim.scenarios import run_scenario
+
+    kw = dict(num_xpus=512, cube_n=4)
+    trace_kw = dict(cluster_xpus=512, size_max=512)
+    for scenario in ("node_churn", "ocs_degraded"):
+        want = run_scenario(scenario, policy_kw=dict(kw, engine="numpy"),
+                            num_jobs=120, trace_kw=trace_kw)
+        tk.reset_launch_counts()
+        got = run_scenario(scenario, policy_kw=dict(
+            kw, engine=EngineConfig("cuda", device=card)), num_jobs=120,
+            trace_kw=trace_kw)
+        counts = tk.launch_counts()
+        assert json.dumps(got, sort_keys=True) == \
+            json.dumps(want, sort_keys=True), scenario
+        assert got["num_faults"] > 0 and got["chaos"]["faults"] > 0
+        assert counts["fitmask_multibox"] > 0, (scenario, counts)
+        assert counts["occupancy_counts"] > 0, (scenario, counts)
 
 
 # Tolerances (atol, rtol) of the sequence kernels against their plain

@@ -4,8 +4,9 @@ equivalence, checkpoint resume, fingerprints, and — against
 ``repro.eval`` on the same seeded tasks — per-run records (``sim_s``
 aside) and Table 1 / Fig 3 / Fig 4 byte-identical through the fleet path
 and the per-task path. Also: how pool workers start (``spawn`` where the
-engine runs on the card), the refused scenario arm, and the default
-engine raising without a card."""
+engine runs on the card), the scenario arm (each named chaos scenario's
+records equal to ``repro.eval``'s, per task and through fleets), and
+the default engine raising without a card."""
 import json
 import os
 
@@ -167,14 +168,29 @@ def test_default_engine_raises_without_a_card(monkeypatch):
         EvalRunner(workers=0, engine=EngineConfig(fleet_size=0)).run(tasks)
 
 
-def test_scenario_task_is_refused():
-    task = EvalTask(label="x", policy="rfold",
-                    policy_kw=dict(num_xpus=512, cube_n=4), num_jobs=10,
-                    scenario="node_churn")
-    with pytest.raises(NotImplementedError, match="chaos layer"):
-        run_task(task, engine=NUMPY)
-    with pytest.raises(NotImplementedError, match="chaos layer"):
-        EvalRunner(workers=0, engine=NUMPY).run([task])
+@pytest.mark.parametrize("scenario", ["bursty", "healthy", "multi_tenant",
+                                      "node_churn", "ocs_degraded"])
+def test_scenario_records_identical_to_reference(scenario):
+    """The paper's eight configurations and two ablation arms under a
+    named chaos scenario, 1 run x 60 jobs: ``run_task``, ``EvalRunner``
+    per task (both ``numpy``) and as fleets (``cuda`` on the CPU) each
+    give ``repro.eval.runner.run_task``'s records, ``sim_s`` aside,
+    chaos block included."""
+    from repro.eval.runner import run_task as ref_run_task
+    kw = dict(runs=1, num_jobs=60, load=1.5, seed0=100, scenario=scenario)
+    want = [ref_run_task(t) for t in ref_make_tasks(PAPER_CONFIGS, **kw)]
+    assert all(r["scenario"] == scenario and r["chaos"] for r in want)
+    assert sum(r["chaos"]["faults"] for r in want) > 0 or \
+        scenario in ("bursty", "healthy")
+    tasks = make_tasks(PAPER_CONFIGS, **kw)
+    direct = [run_task(t, engine=NUMPY) for t in tasks]
+    assert _strip_timing(direct) == _strip_timing(want)
+    assert _strip_timing(EvalRunner(workers=0, engine=SEQ).run(tasks)) == \
+        _strip_timing(want)
+    fleet = EvalRunner(workers=0, engine=EngineConfig("cuda", device="cpu"))
+    assert _strip_timing(fleet.run(tasks)) == _strip_timing(want)
+    broker = fleet.last_stats["fleet"]["broker"]
+    assert broker["engine_failovers"] == 0 and broker["batched_calls"] > 0
 
 
 # ----------------------------------------------------- seed derivation

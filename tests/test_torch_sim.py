@@ -125,13 +125,16 @@ def test_reused_job_list_keeps_its_first_start_as_the_reference_does():
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     """Import every module of the port, its benches and chip_smoke in a
-    fresh process; neither JAX nor any ``repro`` module may be loaded."""
+    fresh process, the chaos layer and its bench by name; neither JAX
+    nor any ``repro`` module may be loaded."""
     code = """
 import pkgutil, sys
 import benchmarks_torch, repro_torch
 for pkg in (repro_torch, benchmarks_torch):
     for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         __import__(m.name)
+import benchmarks_torch.chaos_bench, repro_torch.sim.faults
+import repro_torch.sim.scenarios
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -145,4 +148,4 @@ assert not bad, bad
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 57
+    assert int(out.stdout.strip()) >= 60
