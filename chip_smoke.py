@@ -57,21 +57,40 @@
    ``benchmarks_torch/chaos_bench.py``'s matrix (5 scenarios x 5
    policies at 512 XPUs, 120 jobs, each cell twice) on ``cuda`` against
    ``numpy``: identical cells, deterministic, headline held.
-7. Sequence kernel phase: holds K4 (flash attention) and K5 (SSD scan)
+7. Service main path: ``benchmarks_torch/crash_loop.py``'s op stream
+   (the node_churn trace's submits, a ``done`` after every 3rd submit,
+   the scenario's fault/repair schedule; 200 jobs, seed 17) at 4096
+   XPUs, replayed over TCP against a ``repro_torch.serve.scheduler``
+   daemon on ``cuda`` and in process against a core on ``numpy``, for
+   RFold in 4^3 cubes and FirstFit on a static 16^3 torus: after every
+   op the replies and state digests must be equal. Then the RFold
+   stream through a daemon sharing a ``cuda`` ``QueryBroker`` (drain
+   mode): its digest equals the plain daemon's, fused launches and
+   broker requests > 0, no failover. Then the crash drill at that size
+   (5 kills: final digest and journal length equal the control run's,
+   every resend a no-op, a dedup hit), ``failover_drill.py --quick``
+   (a subprocess primary on ``cuda`` killed with SIGKILL, the standby
+   promoted and digest-identical, the restarted primary fenced), and
+   ``service_bench.py``'s quick sections: parity of five policies
+   through ``RemotePolicy`` and admission as checks; submit latency at
+   4096 XPUs, remote against in process, printed beside the card's name
+   and power limit and gated on nothing. K1, K2, K3 and the fused
+   launch must each have launched in the phase.
+8. Sequence kernel phase: holds K4 (flash attention) and K5 (SSD scan)
    against their plain versions in fp32 and bf16, at the zamba2 prefill
    shapes and at edge cases (K5 with B and C per group, as the model
    hands them over), within stated tolerances, and times them beside
    their bounds, the earlier kernel's time and, for K4, PyTorch's SDPA.
-8. Serve main path, zamba2-1.2b at full width (38 layers, fp32, random
+9. Serve main path, zamba2-1.2b at full width (38 layers, fp32, random
    weights from seed 0): the prefill forward at B 2, S 4096 through the
    kernels (exactly 6 K4 and 38 K5 launches) against the plain path;
    128 decode steps against the prefill logits; and greedy serving
    through ``repro_torch.launch.serve`` at its default sizes.
-9. Prints one JSON line per the kernel table, then the result line.
+10. Prints one JSON line per the kernel table, then the result line.
 
 Launch counters are set to 0 just before each main path (placement,
-fleet, each run of the scenario path, serve) and read just after; every
-kernel must have been launched on a path.
+fleet, each run of the scenario path, service, serve) and read just
+after; every kernel must have been launched on a path.
 
 Any failure raises and exits non-zero. With no CUDA device, or without
 the repository's ``src/repro_torch`` beside it, it exits non-zero and
@@ -120,6 +139,14 @@ SPAWN_RUNS, SPAWN_JOBS, SPAWN_WORKERS = 1, 60, 2
 # size (120-job cells).
 SCENARIO_RUNS, SCENARIO_JOBS = 1, 200
 CHAOS_BENCH_JOBS, CHAOS_BENCH_SEED = 120, 0
+# The service phase: crash_loop.py's node_churn op stream at the paper's
+# cluster size (RFold, 4096 XPUs in 4^3 cubes; FirstFit on a static 16^3
+# torus), its crash drill at that size, failover_drill.py --quick, and
+# service_bench.py's --quick sections (latency at 4096 XPUs).
+SERVICE_JOBS, SERVICE_SEED, SERVICE_XPUS, SERVICE_KILLS = 200, 17, 4096, 5
+SERVICE_STATIC = dict(dims=(16, 16, 16))
+FAILOVER_JOBS, FAILOVER_ACK_N = 36, 20
+BENCH_PARITY_JOBS, BENCH_LATENCY_JOBS, BENCH_FLOOD = 50, 150, 40
 # Simulators a fleet stacks on B at that size (fleet_size "auto" with 24
 # tasks in four grid buckets at workers=0), for the kernel phase.
 FLEET_SIZE = 6
@@ -762,6 +789,178 @@ def scenario_phase(kernel, device):
     return launches
 
 
+def replay(ops, policy, kw, device, mask_client=None):
+    """``ops`` over TCP against a daemon on ``cuda`` (``mask_client``:
+    a shared broker) and in process against a core on ``numpy``, the
+    oracle: after every op the reply (less the daemon's ``seq`` and
+    ``epoch``) and the state digest must be equal. Returns the final
+    digest, the journal length and the two sides' walls."""
+    from benchmarks_torch.crash_loop import RawClient
+    from repro_torch.core.engineconfig import EngineConfig
+    from repro_torch.serve.scheduler import (AllocatorCore, Scheduler,
+                                             SchedulerConfig, protocol)
+
+    core = AllocatorCore(SchedulerConfig(policy=policy, policy_kw=dict(kw),
+                                         engine="numpy"))
+    sched = Scheduler(SchedulerConfig(
+        policy=policy, policy_kw=dict(kw),
+        engine=EngineConfig("cuda", device=device)),
+        mask_client=mask_client).start()
+    client = RawClient(sched.address, cid="smoke")
+    daemon_s = numpy_s = 0.0
+    try:
+        for i, msg in enumerate(ops):
+            wire = dict(msg, client="smoke", request_id=f"smoke:{i}")
+            t0 = time.perf_counter()
+            got = client.send(i, msg)
+            daemon_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = core.apply(wire)[0]
+            numpy_s += time.perf_counter() - t0
+            got = {k: v for k, v in got.items() if k not in ("seq", "epoch")}
+            if got != protocol.decode(protocol.encode(want)):
+                raise AssertionError(f"{policy} op {i} {msg}: daemon "
+                                     f"replied {got}, numpy {want}")
+            st = client.send(1_000_000 + i, {"op": "status"})
+            if st["state_digest"] != core.state_digest():
+                raise AssertionError(f"{policy} op {i} {msg}: digest "
+                                     "differs from numpy's")
+        st = client.send(2_000_000, {"op": "status"})
+    finally:
+        client.close()
+        sched.stop()
+    return st["state_digest"], st["journal_ops"], daemon_s, numpy_s
+
+
+def service_phase(kernel, device):
+    """The allocator service on the card: crash_loop's op stream at 4096
+    XPUs through a ``cuda`` daemon against a ``numpy`` core (RFold 4^3,
+    FirstFit 16^3), a daemon sharing a ``cuda`` broker, the crash drill
+    at that size, failover_drill --quick, and service_bench's sections.
+    Returns the fitmask launches of the phase."""
+    from benchmarks_torch import crash_loop, failover_drill, service_bench
+    from repro_torch.core.engineconfig import EngineConfig
+    from repro_torch.sim.fleet import QueryBroker
+
+    cuda = EngineConfig("cuda", device=device)
+    rfold_kw = crash_loop.policy_kw_for(SERVICE_XPUS)
+    streams = [
+        ("RFold (4^3)", "rfold", rfold_kw),
+        ("FirstFit (16^3)", "firstfit", SERVICE_STATIC),
+    ]
+    print("# service main path: crash_loop's node_churn op stream, %d jobs, "
+          "seed %d, at %d XPUs; cuda daemon over TCP vs numpy core, every op"
+          % (SERVICE_JOBS, SERVICE_SEED, SERVICE_XPUS))
+    kernel.reset_launch_counts()
+    print("service_stream,config,ops,journal_ops,daemon_s,numpy_core_s,"
+          "k1_launches,k2_launches,k3_launches,fused_launches")
+    digests = {}
+    for label, policy, kw in streams:
+        ops = crash_loop.build_op_stream(SERVICE_JOBS, SERVICE_SEED,
+                                         policy=policy, policy_kw=kw)
+        before = kernel.launch_counts()
+        digest, journal, daemon_s, numpy_s = replay(ops, policy, kw, device)
+        torch.cuda.synchronize()
+        after = kernel.launch_counts()
+        n = {k: after[k] - before[k] for k in after}
+        digests[policy] = (digest, ops)
+        print(f"service_stream,{label},{len(ops)},{journal},{daemon_s},"
+              f"{numpy_s},{n['fitmask_multibox']},{n['occupancy_counts']},"
+              f"{n['fitmask_batched']},{n['fitmask_multibox_bucketed']}")
+
+    digest, ops = digests["rfold"]
+    broker = QueryBroker("cuda", quorum=0, device=device)
+    before = kernel.launch_counts()
+    shared, _, shared_s, _ = replay(ops, "rfold", rfold_kw, device,
+                                    mask_client=broker)
+    torch.cuda.synchronize()
+    fused = (kernel.launch_counts()["fitmask_multibox_bucketed"]
+             - before["fitmask_multibox_bucketed"])
+    b = broker.stats.as_dict()
+    print("service_broker,digest_equal,requests,flushes,fused_launches,"
+          "mean_grids_per_call,failovers,daemon_s")
+    print(f"service_broker,{shared == digest},{b['requests']},"
+          f"{b['flushes']},{fused},{b['mean_grids_per_call']},"
+          f"{b['engine_failovers']},{shared_s}")
+    if shared != digest:
+        raise AssertionError("the daemon sharing a cuda broker digests "
+                             "unlike the plain cuda daemon")
+    if fused == 0 or b["requests"] == 0:
+        raise AssertionError(f"the shared broker never launched: {b}")
+    if b["engine_failovers"] or b["engine_retries"] or b["canary_checks"]:
+        raise AssertionError(f"the shared broker failed over: {b}")
+
+    t0 = time.perf_counter()
+    drill = crash_loop.run_drill(SERVICE_JOBS, SERVICE_SEED, SERVICE_KILLS,
+                                 cuda, SERVICE_XPUS)
+    torch.cuda.synchronize()
+    crash_s = time.perf_counter() - t0
+    c = drill["crash"]
+    print("service_crash_loop,ops,kills,control_digest,crash_digest,"
+          "journal_ops,dedup_hits,wal_tail_ops,resends_clean,pass,wall_s")
+    print(f"service_crash_loop,{drill['ops']},{len(drill['kills'])},"
+          f"{drill['control']['digest']},{c['digest']},{c['journal_ops']},"
+          f"{c['resilience']['dedup_hits']},{c['resilience']['wal_tail_ops']},"
+          f"{c['resends_clean']},{drill['pass']},{crash_s}")
+    if not drill["pass"] or len(drill["kills"]) != SERVICE_KILLS:
+        raise AssertionError(f"crash loop on the card: {drill}")
+
+    t0 = time.perf_counter()
+    fo = failover_drill.run_drill(FAILOVER_JOBS, SERVICE_SEED,
+                                  FAILOVER_ACK_N, cuda)
+    torch.cuda.synchronize()
+    h = fo["headline"]
+    print("service_failover,ops,digest_identical,acked_ops_lost,"
+          "resend_exactly_once,fenced_writes_landed,fenced,rto_ms,"
+          "sync_p50_ms,async_p50_ms,pass,wall_s")
+    print(f"service_failover,{h['ops']},{h['digest_identical']},"
+          f"{h['acked_ops_lost']},{h['resend_exactly_once']},"
+          f"{h['fenced_writes_landed']},{h['fenced_client_and_journal']},"
+          f"{h['rto_ms']},{fo['ack_overhead']['sync']['p50_ms']},"
+          f"{fo['ack_overhead']['async']['p50_ms']},{fo['pass']},"
+          f"{time.perf_counter() - t0}")
+    if not fo["pass"]:
+        raise AssertionError(f"failover drill on the card: {fo}")
+
+    par = service_bench.parity_section(BENCH_PARITY_JOBS, 3, cuda)
+    adm = service_bench.admission_section(BENCH_FLOOD, cuda)
+    lat = service_bench.latency_section(BENCH_LATENCY_JOBS, 11, cuda)
+    torch.cuda.synchronize()
+    print("service_bench,parity_identical,admission_pass,outcomes_equal")
+    print(f"service_bench,{par['identical']},{adm['pass']},"
+          f"{lat['outcomes_equal']}")
+    if not (par["identical"] and adm["pass"] and lat["outcomes_equal"]):
+        raise AssertionError(f"service_bench on the card: {par} {adm} "
+                             f"{lat['outcomes']}")
+    # Host-clock walls of one RPC (remote) or one apply (in process);
+    # printed beside the card's name and power limit, gated on nothing.
+    print("# service latency (not gated): %d jobs at %d XPUs, %s"
+          % (BENCH_LATENCY_JOBS, lat["num_xpus"], card_line()))
+    print("service_latency,side,submit_p50_ms,submit_p99_ms,submit_max_ms,"
+          "done_p99_ms,rpcs")
+    for side in ("remote", "local"):
+        r = lat[side]
+        print(f"service_latency,{side},{r['submit_p50_ms']},"
+              f"{r['submit_p99_ms']},{r['submit_max_ms']},"
+              f"{r['done_p99_ms']},{r['rpcs']}")
+    launches = kernel.launch_counts()
+    print("service_launches,k1,k2,k3,fused")
+    print(f"service_launches,{launches['fitmask_multibox']},"
+          f"{launches['occupancy_counts']},{launches['fitmask_batched']},"
+          f"{launches['fitmask_multibox_bucketed']}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"the service path never launched {name}")
+    return launches
+
+
+def card_line():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader", "-i", "0"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
 def build_all():
     """One nvcc process per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -1146,10 +1345,7 @@ def main() -> int:
     sys.path.insert(0, src)
     from repro_torch.kernels.fitmask import kernel
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
-                         capture_output=True, text=True, check=True)
-    print(smi.stdout.strip())
+    print(card_line())
     device = torch.device("cuda")
     print("torch %s, CUDA %s, %s" % (torch.__version__, torch.version.cuda,
                                     torch.cuda.get_device_name(0)))
@@ -1175,8 +1371,11 @@ def main() -> int:
     t0 = time.perf_counter()
     scenario = scenario_phase(kernel, device)
     phase_s["scenario main path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    service = service_phase(kernel, device)
+    phase_s["service main path"] = time.perf_counter() - t0
     by_path = {name: {"placement": placement[name], "fleet": fleet[name],
-                      "scenario": scenario[name]}
+                      "scenario": scenario[name], "service": service[name]}
                for name in placement}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
     for name, count in launches.items():

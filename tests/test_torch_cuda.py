@@ -1,7 +1,8 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
 against their plain PyTorch versions on the card, the placement loop
-and the chaos scenarios through the ``cuda`` engine against the host
-``numpy`` engine, and the zamba2 smoke model's forward through the
+the chaos scenarios and the allocator daemon through the ``cuda``
+engine against the host ``numpy`` engine, and the zamba2 smoke model's
+forward through the
 kernels against its plain path.
 Every test is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor ``repro``, so it also runs where only the
@@ -441,6 +442,35 @@ def test_scenarios_on_cuda_match_numpy(card):
         assert got["num_faults"] > 0 and got["chaos"]["faults"] > 0
         assert counts["fitmask_multibox"] > 0, (scenario, counts)
         assert counts["occupancy_counts"] > 0, (scenario, counts)
+
+
+def test_service_daemon_on_cuda_launches_k1(card):
+    """The allocator daemon with no engine argument places on the card:
+    a submit/done round trip over TCP launches K1, and every reply and
+    the state digest equal a host ``numpy`` core's on the same ops."""
+    from repro_torch.serve.scheduler import (AllocatorCore, Scheduler,
+                                             SchedulerConfig, protocol)
+
+    kw = dict(num_xpus=512, cube_n=4)
+    host = AllocatorCore(SchedulerConfig(policy="rfold", policy_kw=kw,
+                                         engine="numpy"))
+    ops = [{"op": "submit", "shape": [8, 4, 4]},
+           {"op": "submit", "shape": [2, 2, 2]},
+           {"op": "submit", "shape": [4, 4, 4]},
+           {"op": "done", "job_id": 0}]
+    tk.reset_launch_counts()
+    with Scheduler(SchedulerConfig(policy="rfold", policy_kw=kw)) as s:
+        assert s.config.engine.resolve_name() == "cuda"
+        for op in ops:
+            want = protocol.decode(protocol.encode(host.apply(dict(op))[0]))
+            got = s.client.call(op["op"], **{k: v for k, v in op.items()
+                                             if k != "op"})
+            assert {k: v for k, v in got.items()
+                    if k not in ("seq", "epoch")} == want, op
+        status = s.status()
+    torch.cuda.synchronize()
+    assert tk.launch_counts()["fitmask_multibox"] > 0
+    assert status["state_digest"] == host.state_digest()
 
 
 # Tolerances (atol, rtol) of the sequence kernels against their plain

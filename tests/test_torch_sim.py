@@ -125,16 +125,29 @@ def test_reused_job_list_keeps_its_first_start_as_the_reference_does():
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     """Import every module of the port, its benches and chip_smoke in a
-    fresh process, the chaos layer and its bench by name; neither JAX
-    nor any ``repro`` module may be loaded."""
+    fresh process, the chaos layer, the service, its benchmarks and
+    ``repro_torch.api`` by name, and load each ``examples_torch`` script
+    by path (not as ``__main__``); neither JAX nor any ``repro`` module
+    may be loaded."""
     code = """
-import pkgutil, sys
+import glob, importlib.util, os, pkgutil, sys
 import benchmarks_torch, repro_torch
 for pkg in (repro_torch, benchmarks_torch):
     for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
         __import__(m.name)
 import benchmarks_torch.chaos_bench, repro_torch.sim.faults
 import repro_torch.sim.scenarios
+import repro_torch.api, repro_torch.serve.scheduler
+import benchmarks_torch.crash_loop, benchmarks_torch.failover_drill
+import benchmarks_torch.service_bench
+examples = sorted(glob.glob(os.path.join("examples_torch", "*.py")))
+assert len(examples) >= 2, examples
+for path in examples:
+    name = "example_" + os.path.basename(path)[:-3]
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert callable(mod.main), path
 import chip_smoke
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
