@@ -1,6 +1,6 @@
 """Serving launcher: batched greedy decoding demo over the public API.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       --batch 4 --prompt-len 16 --gen 16
 
 Runs on the card unless ``--device cpu`` is given; with no card it
@@ -41,7 +41,12 @@ def main(argv=None) -> None:
     params = lm.init_model(
         cfg, torch.Generator(device).manual_seed(args.seed), device)
     rng = np.random.default_rng(args.seed)
-    prompt = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    if cfg.arch_type == "audio":    # one stream per codebook
+        prompt = rng.integers(0, cfg.vocab_size,
+                              (args.batch, cfg.n_codebooks, args.prompt_len))
+    else:
+        prompt = rng.integers(0, cfg.vocab_size,
+                              (args.batch, args.prompt_len))
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)

@@ -1,11 +1,14 @@
-"""Grouped-query attention (RoPE or none, optional QKV bias, sliding
-window) with a circular-buffer KV cache for full and sliding-window
-decode.
+"""Grouped-query attention (RoPE, M-RoPE or none; sinusoidal positions
+are added at the embedding; optional QKV bias, sliding window) with a
+circular-buffer KV cache for full and sliding-window decode.
 
 The einsum path here is the oracle path and the decode path; the
 full-sequence forward may take the hand-written flash kernel
-(:mod:`repro_torch.kernels.flash_attention`) instead. MLA and M-RoPE of
-``repro.models.attention`` come with their families.
+(:mod:`repro_torch.kernels.flash_attention`) instead. The einsum path
+masks by the temporal position (``positions[..., 0]`` under M-RoPE),
+the kernel by ``arange``, as in ``repro``: the two differ where image
+patches share a temporal position. MLA of ``repro.models.attention``
+comes with its family.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from .common import ModelConfig, Params, apply_rope, dense_init
+from .common import ModelConfig, Params, apply_mrope, apply_rope, dense_init
 
 NEG_INF = -1e30
 
@@ -129,9 +132,9 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                       head_dim: Optional[int] = None,
                       use_flash: bool = False
                       ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """positions: (B, S) absolute token positions. cache=None ->
-    full-sequence (train/prefill); cache given -> single-token decode
-    (S == 1)."""
+    """positions: (B, S) absolute token positions, or (B, S, 3) for
+    M-RoPE. cache=None -> full-sequence (train/prefill); cache given ->
+    single-token decode (S == 1)."""
     h = n_heads or cfg.n_heads
     kh = n_kv_heads or cfg.n_kv_heads
     hd = head_dim or cfg.head_dim
@@ -148,23 +151,28 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     k = k.reshape(b, s, kh, hd)
     v = v.reshape(b, s, kh, hd)
 
+    pos1 = positions[..., 0] if positions.dim() == 3 else positions
     if cfg.pos_type == "rope":
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
-    elif cfg.pos_type != "none":
+        q = apply_rope(q, pos1, cfg.rope_theta)
+        k = apply_rope(k, pos1, cfg.rope_theta)
+    elif cfg.pos_type == "mrope":
+        pos3 = positions if positions.dim() == 3 else \
+            positions[..., None].expand(*positions.shape, 3)
+        q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
+    elif cfg.pos_type not in ("none", "sinusoidal"):
         raise ValueError(f"pos_type {cfg.pos_type!r} is not ported yet")
 
     if cache is None:
-        out = _flash_or_ref(cfg, q, k, v, positions, positions, window,
-                            use_flash)
+        out = _flash_or_ref(cfg, q, k, v, pos1, pos1, window, use_flash)
         new_cache = None
     else:
         if s != 1:
             raise ValueError(f"decode expects one new token, got {s}")
-        new_cache = _cache_write(cache, ("k", "v"), (k, v), positions[0, 0])
+        new_cache = _cache_write(cache, ("k", "v"), (k, v), pos1[0, 0])
         kc, vc = new_cache["k"], new_cache["v"]
         out = _gqa_attend(q, kc.to(q.dtype), vc.to(q.dtype),
-                          positions, new_cache["slot_pos"], window)
+                          pos1, new_cache["slot_pos"], window)
     out = out.reshape(b, s, h * hd) @ p["w_o"].to(x.dtype)
     return out, new_cache
 

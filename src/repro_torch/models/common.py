@@ -1,5 +1,5 @@
 """Shared model substrate: config dataclass, initializers, norms, rotary
-position encodings, gated activations.
+(RoPE, M-RoPE) and sinusoidal position encodings, gated activations.
 
 A module is an ``init_*`` returning a params tree (nested dicts of
 tensors, with the same keys and stacking as ``repro``'s JAX pytrees) and
@@ -205,6 +205,43 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    x: (B, S, H, D); positions3: (B, S, 3) — (temporal, height, width)
+    indices. The D/2 frequency slots are partitioned into ``sections``
+    (t, h, w); each section rotates by its own position stream.
+    """
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {d // 2}")
+    freqs = rope_freqs(d, theta, x.device)                 # (D/2,)
+    slot_pos = torch.cat(
+        [positions3[..., i, None].float().expand(*positions3.shape[:-1], sec)
+         for i, sec in enumerate(sections)], dim=-1)       # (B, S, D/2)
+    angles = (slot_pos * freqs)[..., None, :]              # (B, S, 1, D/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int, offset=0,
+                         device: Optional[torch.device] = None
+                         ) -> torch.Tensor:
+    """MusicGen-style sinusoidal embeddings, (S, D). ``offset``: an int
+    or a 0-d tensor added to every position."""
+    pos = torch.arange(seq_len, dtype=torch.float32, device=device) + offset
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=device) / half)
+    ang = pos[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ----------------------------------------------------------------------

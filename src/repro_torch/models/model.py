@@ -7,16 +7,23 @@ leaves carry a leading layer axis, so its ``lax.scan`` becomes a Python
 loop that indexes the stacked tensors. Heterogeneous patterns are loops
 over *groups*:
 
-  dense           : n_layers x dense (stacked)
+  dense/audio/vlm : n_layers x dense (stacked)
   hybrid (zamba2) : G x [shared_attn ; k x mamba] (stacked) + leftover
                     mamba layers (a list); the attention block params are
                     SHARED, applied once at the start of each group.
 
+The audio family (musicgen) embeds K codebook streams (tokens (B, K, S))
+as the sum of K embeddings and predicts each with its own head (logits
+(B, S, K, V)); its positions are sinusoidal, added at the embedding.
+The vlm family (qwen2-vl) splices stub patch embeddings over the
+image-placeholder positions and rotates by M-RoPE; any family takes a
+stub ``embeds`` input in place of tokens.
+
 ``repro``'s ``remat`` (rematerialisation under ``jax.checkpoint``) and
 ``force_unscanned`` (unrolled layers for XLA cost analysis) do not apply
 to an eager forward without autograd: the fields stay in the config and
-are ignored here. The moe, ssm (xLSTM), audio and vlm families come with
-their blocks.
+are ignored here. The moe and ssm (xLSTM) families come with their
+blocks.
 """
 from __future__ import annotations
 
@@ -28,7 +35,8 @@ import torch
 
 from repro_torch.device import resolve_device
 from .blocks import apply_layer, init_layer, init_layer_state
-from .common import ModelConfig, Params, apply_norm, embed_init, init_norm
+from .common import (ModelConfig, Params, apply_norm, embed_init, init_norm,
+                     sinusoidal_positions)
 
 
 # ----------------------------------------------------------------------
@@ -70,7 +78,7 @@ class Segment:
 
 def layer_plan(cfg: ModelConfig) -> List[Segment]:
     at = cfg.arch_type
-    if at == "dense":
+    if at in ("dense", "audio", "vlm"):
         return [Segment("dense", cfg.n_layers, True)]
     if at == "hybrid":  # zamba2
         k = cfg.shared_attn_every
@@ -80,7 +88,7 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
             segs.append(Segment("mamba", rem, False))
         return segs
     raise ValueError(f"arch type {at!r} is not ported yet; repro_torch has "
-                     "the dense and hybrid stacks")
+                     "the dense (with audio and vlm) and hybrid stacks")
 
 
 # ----------------------------------------------------------------------
@@ -93,11 +101,15 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``generator`` (None: PyTorch's default generator for the device).
     ``device="meta"`` gives the tree's shapes without storage."""
     device = resolve_device(device)
-    d = cfg.d_model
-    params: Dict[str, Any] = {
-        "embed": embed_init(generator, (cfg.vocab_size, d), device)}
-    if not cfg.tie_embeddings:
-        params["lm_head"] = embed_init(generator, (d, cfg.vocab_size), device)
+    d, v = cfg.d_model, cfg.vocab_size
+    if cfg.arch_type == "audio":    # one embedding and head per codebook
+        params: Dict[str, Any] = {
+            "embed": embed_init(generator, (cfg.n_codebooks, v, d), device),
+            "lm_head": embed_init(generator, (cfg.n_codebooks, d, v), device)}
+    else:
+        params = {"embed": embed_init(generator, (v, d), device)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = embed_init(generator, (d, v), device)
 
     seg_params = []
     for seg in layer_plan(cfg):
@@ -155,10 +167,37 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> Params:
 # ----------------------------------------------------------------------
 
 def embed_tokens(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
-    return params["embed"][batch["tokens"].long()].to(cfg.activation_dtype)
+    """(B, S, D) activations: a stub front end's ``embeds``, the sum of
+    the codebook embeddings (audio, tokens (B, K, S)), or the token
+    embeddings with the vlm's ``patch_embeds`` spliced where
+    ``patch_mask`` (B, S) is set; plus sinusoidal positions from
+    ``pos_offset`` (default 0) where the config has them."""
+    dtype = cfg.activation_dtype
+    if batch.get("embeds") is not None:
+        x = batch["embeds"]
+    elif cfg.arch_type == "audio":
+        toks = batch["tokens"].long()                     # (B, K, S)
+        emb = params["embed"]                             # (K, V, D)
+        x = torch.zeros(toks.shape[:1] + toks.shape[2:] + (cfg.d_model,),
+                        dtype=dtype, device=emb.device)
+        for k in range(cfg.n_codebooks):
+            x = x + emb[k][toks[:, k]].to(dtype)
+    else:
+        x = params["embed"][batch["tokens"].long()].to(dtype)
+        if cfg.arch_type == "vlm" and batch.get("patch_embeds") is not None:
+            pe = batch["patch_embeds"].to(dtype)
+            x = torch.where(batch["patch_mask"][..., None], pe, x)
+    if cfg.pos_type == "sinusoidal":
+        sin = sinusoidal_positions(x.shape[1], cfg.d_model,
+                                   batch.get("pos_offset", 0), x.device)
+        x = x + sin[None].to(x.dtype)
+    return x
 
 
 def lm_logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """(B, S, V) logits, or (B, S, K, V) for the audio family."""
+    if cfg.arch_type == "audio":
+        return torch.einsum("bsd,kdv->bskv", x, params["lm_head"].to(x.dtype))
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head.to(x.dtype)
 
@@ -281,9 +320,10 @@ def init_decode_state(cfg: ModelConfig, batch: int, window: int,
 
 def decode_step(cfg: ModelConfig, params: Params, state: List,
                 batch: Dict) -> Tuple[torch.Tensor, List]:
-    """One-token decode. batch['tokens']: (B, 1); batch['positions']:
-    (B, 1) absolute positions. Returns (logits, new_state); the KV
-    caches inside ``state`` are updated in place."""
+    """One-token decode. batch['tokens']: (B, 1) (or (B, K, 1) audio);
+    batch['positions']: (B, 1) absolute positions, or (B, 1, 3) under
+    M-RoPE. Returns (logits, new_state); the KV caches inside ``state``
+    are updated in place."""
     x = embed_tokens(cfg, params, batch)
     positions = batch["positions"]
     window = (cfg.sliding_window

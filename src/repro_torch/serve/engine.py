@@ -31,12 +31,14 @@ def serve_step(cfg: ModelConfig, params: Any, state: List,
 
 def greedy_decode(cfg: ModelConfig, params: Any, prompt, steps: int,
                   window: int = 0, device=None) -> torch.Tensor:
-    """Greedy generation: prompt (B, S0) -> (B, S0+steps) int32 tokens on
+    """Greedy generation: prompt (B, S0) -> (B, S0+steps) int32 tokens
+    (audio: (B, K, S0) -> (B, K, S0+steps), one argmax per codebook) on
     ``device`` (None: the card; no card raises ``RuntimeError``).
 
     Prompt ingestion uses decode_step per position (exact cache
     population); generation continues greedily, taking the argmax on
-    the device."""
+    the device. As in ``repro``, no ``pos_offset`` is passed, so
+    sinusoidal positions stay those of position 0 in every step."""
     device = resolve_device(device)
     toks = torch.as_tensor(prompt, dtype=torch.int32).to(device)
     b, s0 = toks.shape[0], toks.shape[-1]
@@ -46,6 +48,8 @@ def greedy_decode(cfg: ModelConfig, params: Any, prompt, steps: int,
 
     def make_batch(tok, t):
         pos = torch.full((b, 1), t, dtype=torch.int32, device=device)
+        if cfg.pos_type == "mrope":
+            pos = pos[:, :, None].expand(b, 1, 3)
         return {"tokens": tok, "positions": pos}
 
     logits = None
@@ -53,6 +57,7 @@ def greedy_decode(cfg: ModelConfig, params: Any, prompt, steps: int,
         logits, state = serve_step(cfg, params, state,
                                    make_batch(toks[..., t:t + 1], t))
     for t in range(steps):
+        # (B, V) or (B, K, V) -> (B, 1) or (B, K, 1)
         nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)[..., None]
         toks = torch.cat([toks, nxt], dim=-1)
         logits, state = serve_step(cfg, params, state,

@@ -702,3 +702,64 @@ def test_smoke_forward_through_kernels_matches_plain_on_card(card):
     assert tfa.launch_counts() == {"flash_attention": 2}
     assert tssd.launch_counts() == {"ssd_scan": 5}
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# K4 at each head layout of the dense-stack families (H:KH, D), against
+# its plain version: GQA groups of 4, 3, 8 and 7, and MHA at 128 and 64.
+FAMILY_LAYOUTS = {  # arch: (H, KH, D)
+    "llama3-8b": (32, 8, 128), "phi4-mini-3.8b": (24, 8, 128),
+    "olmo-1b": (16, 16, 128), "qwen1.5-110b": (64, 8, 128),
+    "qwen2-vl-7b": (28, 4, 128), "musicgen-medium": (24, 24, 64),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", sorted(FAMILY_LAYOUTS))
+def test_flash_attention_family_layouts_on_card(card, arch, dtype):
+    h, kh, d = FAMILY_LAYOUTS[arch]
+    rng = np.random.default_rng(h + kh + d)
+    b, s = 1, 333
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(card, dtype) for shape in
+               ((b, s, h, d), (b, s, kh, d), (b, s, kh, d)))
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention(q, k, v, causal=True, window=8192)
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=8192)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts() == {"flash_attention": 1}
+    atol, rtol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+def _family_batch(cfg, card):
+    rng = np.random.default_rng(1)
+    shape = ((2, cfg.n_codebooks, 64) if cfg.arch_type == "audio"
+             else (2, 64))
+    batch = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, shape)).to(card)}
+    if cfg.arch_type == "vlm":
+        batch["positions"] = torch.arange(
+            64, dtype=torch.int32, device=card)[None, :, None].expand(2, 64, 3)
+        batch["patch_embeds"] = torch.from_numpy(
+            rng.normal(size=(2, 64, cfg.d_model)).astype(np.float32)).to(card)
+        mask = torch.zeros((2, 64), dtype=torch.bool, device=card)
+        mask[:, :8] = True
+        batch["patch_mask"] = mask
+    return batch
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILY_LAYOUTS))
+def test_family_smoke_forward_through_kernel_matches_plain_on_card(card,
+                                                                   arch):
+    """One kernel-path prefill per family at smoke width (qwen2-vl with
+    arange positions and spliced patches), one K4 launch per layer."""
+    cfg = smoke_variant(get_config(arch), n_layers=3)
+    params = tlm.init_model(cfg, torch.Generator(card).manual_seed(0), card)
+    batch = _family_batch(cfg, card)
+    want, _ = tlm.forward(cfg, params, batch)
+    tfa.reset_launch_counts()
+    got, _ = tlm.forward(cfg, params, batch, use_kernel=True)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts() == {"flash_attention": 3}
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
