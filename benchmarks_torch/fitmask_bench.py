@@ -25,6 +25,14 @@ each multi-box case it times the card's floor for writing the same int32
 output (``Tensor.zero_``), and once the floor for one launch
 (``chip_smoke.launch_floor_ms``). Prints the card's name and power
 limit, then CSV rows ``fitmask_bench,tree,kernel,case,box,plan,ms``.
+
+Last, the single-pass section: K1 (one launch for all K boxes) against
+``fitmask_multibox_singlepass_baseline`` (K launches of K3, stacked) on
+the cells of ``repro``'s ``benchmarks/fitmask_bench.py`` (grids 8^3 and
+16^3, B 1, 8 and 64, K 1, 4, 8 and 16; its candidate boxes and grids of
+30 % occupancy from numpy's generator, seed 0). Each timed call is first
+held bit-exact against K1. Prints ``singlepass`` rows and the headline,
+the multi-box speed-up at 16^3 with K >= 4.
 """
 from __future__ import annotations
 
@@ -36,6 +44,60 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+# repro's benchmarks/fitmask_bench.py: candidate boxes in the spirit of
+# fold enumeration (the flat and compact shapes RFold queries), truncated
+# to K and filtered by grid, and its sweep.
+CANDIDATE_BOXES = [
+    (4, 4, 4), (8, 4, 2), (2, 2, 2), (16, 2, 2), (8, 8, 1), (4, 2, 1),
+    (16, 4, 1), (2, 4, 8), (8, 2, 4), (1, 1, 1), (16, 16, 1), (4, 8, 2),
+    (3, 3, 3), (6, 2, 2), (12, 2, 1), (2, 8, 4), (5, 2, 2), (2, 6, 2),
+    (4, 4, 1), (7, 1, 1), (1, 8, 2), (2, 2, 5), (6, 4, 1), (3, 2, 4),
+]
+SINGLEPASS_CELLS = [(grid, bsz, k) for grid in ((8, 8, 8), (16, 16, 16))
+                    for bsz in (1, 8, 64) for k in (1, 4, 8, 16)]
+
+
+def boxes_for(grid, k):
+    out = [b for b in CANDIDATE_BOXES
+           if all(e <= d for e, d in zip(b, grid))]
+    if len(out) < k:
+        raise ValueError(f"{len(out)} candidate boxes fit {grid}, not {k}")
+    return out[:k]
+
+
+def singlepass_sweep(kernel, device, timer, cells=SINGLEPASS_CELLS):
+    """K1 against the single-pass baseline on ``cells`` ((grid, B, K)),
+    each first held bit-exact against K1; ``timer(fn)`` gives ms. Prints
+    one row a cell and the headline; returns the rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    rows = []
+    print("singlepass,grid,B,K,multibox_ms,singlepass_ms,speedup")
+    for grid, bsz, k in cells:
+        occ = torch.from_numpy(rng.uniform(size=(bsz,) + grid) < 0.3).to(
+            device)
+        boxes = boxes_for(grid, k)
+        multi = lambda: kernel.fitmask_multibox(occ, boxes)  # noqa: E731
+        single = lambda: kernel.fitmask_multibox_singlepass_baseline(  # noqa: E731
+            occ, boxes)
+        if not torch.equal(single(), multi()):
+            raise AssertionError(f"single-pass baseline at {grid}, B {bsz}, "
+                                 f"K {k}: differs from K1")
+        m_ms, s_ms = timer(multi), timer(single)
+        rows.append(dict(grid="x".join(map(str, grid)), batch=bsz, k=k,
+                         multibox_ms=m_ms, singlepass_ms=s_ms,
+                         speedup=s_ms / m_ms))
+        print("singlepass,%s,%d,%d,%s,%s,%s" % (
+            rows[-1]["grid"], bsz, k, m_ms, s_ms, rows[-1]["speedup"]),
+            flush=True)
+    head = [r["speedup"] for r in rows if r["grid"] == "16x16x16"
+            and r["k"] >= 4]
+    if head:
+        print(f"# headline: at 16^3, K >= 4, one K1 launch is {min(head)}x "
+              f"to {max(head)}x faster than K launches of K3")
+    return rows
 
 
 def main(argv=None) -> int:
@@ -121,6 +183,11 @@ def main(argv=None) -> int:
                 run(name, label, box, mode,
                     lambda plan=plan, host=host:
                     kernel._launch_multibox(occ, host, plan), plain)
+    if not hasattr(kernel, "fitmask_multibox_singlepass_baseline"):
+        print(f"fitmask_bench,{args.tree},singlepass,,,,absent")
+        return 0
+    singlepass_sweep(kernel, device,
+                     lambda fn: cs.device_ms(fn, cs.time_ms(fn)))
     return 0
 
 

@@ -23,7 +23,9 @@
    the box, first checked equal to the kernel's plane where the box
    fits). The fused launch and K2 are also checked and timed at the
    fleet's shapes: six simulators' grids stacked on B (6 x 16^3,
-   48 x 8^3, 384 x 4^3, 3072 x 2^3) with the loop's box tables.
+   48 x 8^3, 384 x 4^3, 3072 x 2^3) with the loop's box tables. The
+   single-pass baseline (K launches of K3, stacked) is held bit-exact
+   against K1 and its plain version at 16^3, B 8, K 4 and timed there.
 4. Placement main path: runs the eight Table 1 / Fig 3 placement
    configurations at 4096 XPUs on the 200-job trace (seed 0,
    ``target_load=1.5``) through the ``cuda`` engine, and again through
@@ -80,7 +82,8 @@
    against their plain versions in fp32 and bf16, at the zamba2 prefill
    shapes, at each dense-stack family's head layout (llama3-8b 32:8 at
    B 2 x S 4096; phi4-mini 24:8, olmo-1b 16:16, qwen1.5-110b 64:8,
-   qwen2-vl-7b 28:4 and musicgen 24:24 at B 1 x S 2048) and at edge
+   qwen2-vl-7b 28:4 and musicgen 24:24 at B 1 x S 2048), at
+   llama4-scout's 40:8 (B 1 x S 2048) and at edge
    cases (K5 with B and C per group, as the model hands them over),
    within stated tolerances, and times them beside their bounds, the
    earlier kernel's time and, for K4, PyTorch's SDPA.
@@ -101,13 +104,30 @@
    against the prefill (musicgen's decode adds the sinusoidal position
    of 0 to every token, as the reference's does, so its drift is
    printed, not checked).
-11. Prints one JSON line per the kernel table (K4's launches by served
+11. MoE phase at full width, one model at a time: llama4-scout-17b-a16e
+   cut to 4 of its 48 layers (GQA 40:8 on K4, top-1 sigmoid routing
+   over 16 experts, per-row dispatch) and deepseek-v2-236b cut to 3 of
+   60 (the dense first layer and 2 MoE layers of 160 experts; MLA, no
+   kernel). The prefill pair at B 1 x S 2048 (exactly 4 and 0 K4
+   launches), each layer's expert ids recorded on both paths: the
+   (token, layer) choices that differ are printed and must stay under
+   0.1 %, and the logits are held to LOGIT_REL up to the first token
+   whose routing differs. A profile of the kernel-path prefill, two
+   identical kernel-path forwards bit for bit, 16 decode steps against
+   the prefill at drop-free capacity (deepseek-v2: naive and absorbed
+   MLA decode, each against the prefill and against each other),
+   greedy serving through ``engine.greedy_decode`` on the cut model
+   (B 4, 16 + 16 tokens) and ``repro_torch.launch.serve --arch <model>
+   --smoke`` on the card.
+12. The single-pass baseline's path: ``benchmarks_torch/fitmask_bench.py``'s
+   single-pass section at its headline cell (16^3, B 8, K 4).
+13. Prints one JSON line per the kernel table (K4's launches by served
    model), then the result line.
 
 Launch counters are set to 0 just before each main path (placement,
 fleet, each run of the scenario path, service, each model's kernel-path
-prefill) and read just after; every kernel must have been launched on a
-path.
+prefill, the bench's single-pass section) and read just after; every
+kernel must have been launched on a path.
 
 Any failure raises and exits non-zero. With no CUDA device, or without
 the repository's ``src/repro_torch`` beside it, it exits non-zero and
@@ -115,6 +135,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -178,10 +199,14 @@ REPLACES = {
     "occupancy_counts": "src/repro/kernels/fitmask/kernel.py:143",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:107",
     "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:94",
+    # K launches of K3 (src/repro/kernels/fitmask/kernel.py:90), stacked
+    "fitmask_multibox_singlepass_baseline":
+        "src/repro/kernels/fitmask/kernel.py:154",
 }
 SOURCE = {"fitmask_multibox": "fitmask.cu", "fitmask_batched": "fitmask.cu",
           "occupancy_counts": "fitmask.cu",
           "fitmask_multibox_bucketed": "fitmask.cu",
+          "fitmask_multibox_singlepass_baseline": "fitmask.cu",
           "flash_attention": "flash_attention.cu", "ssd_scan": "ssd_scan.cu"}
 SOURCES = tuple(dict.fromkeys(SOURCE.values()))     # in src/repro_torch/csrc
 
@@ -214,6 +239,21 @@ PREFILL_B, PREFILL_S, DECODE_S = 2, 4096, 128
 SWEEP = (("phi4-mini-3.8b", None), ("olmo-1b", None), ("qwen2-vl-7b", None),
          ("musicgen-medium", None), ("qwen1.5-110b", 2))
 SWEEP_B, SWEEP_S, SWEEP_DECODE, SWEEP_PATCHES = 1, 2048, 16, 64
+# The MoE phase: (arch, layers run) at full width. fp32 weights of a
+# full-depth model do not fit one card: llama4-scout 8.3 GB of embedding
+# and head plus 8.8 GB a layer (4 layers: 43.5 GB); deepseek-v2 4.2 GB,
+# its dense first layer 1.35 GB and 15.9 GB an MoE layer (3 layers:
+# 37.3 GB).
+MOE = (("llama4-scout-17b-a16e", 4), ("deepseek-v2-236b", 3))
+MOE_B, MOE_S, MOE_DECODE = 1, 2048, 16
+MOE_SERVE_B, MOE_SERVE_PROMPT, MOE_SERVE_GEN = 4, 16, 16
+# Share of (token, layer) routing choices that may differ between the
+# kernel and plain prefills: K4 and the einsum round differently, and a
+# top-1 router flips where two logits nearly tie.
+MOE_FLIP_SHARE = 1e-3
+# The single-pass baseline's cell: benchmarks_torch/fitmask_bench.py's
+# headline (16^3, B 8, K 4).
+SINGLEPASS_CELL = ((16, 16, 16), 8, 4)
 
 
 def all_shapes(n):
@@ -441,6 +481,38 @@ def counts_check(kernel, occ, bsz, dims):
             (bsz * cells + 4 * bsz, bsz * cells), ("", None))
 
 
+def singlepass_input(device):
+    """The single-pass baseline's cell, SINGLEPASS_CELL, with the bench's
+    boxes and grids: (label, B, dims, boxes, occ)."""
+    from benchmarks_torch.fitmask_bench import boxes_for
+
+    dims, bsz, k = SINGLEPASS_CELL
+    occ = occupancy(np.random.default_rng(SEED + 3), bsz, dims, device)
+    return (f"singlepass {dims[0]}^3", bsz, dims, boxes_for(dims, k), occ)
+
+
+def singlepass_row(kernel, label, bsz, dims, boxes, occ):
+    """The baseline held bit-exact against its plain version and K1, and
+    timed beside K1 (``multibox_ms``) on the same grids."""
+    fn = lambda: kernel.fitmask_multibox_singlepass_baseline(occ, boxes)  # noqa: E731
+    plain = lambda: kernel.fitmask_multibox_singlepass_baseline_plain(  # noqa: E731
+        occ, boxes)
+    multi = lambda: kernel.fitmask_multibox(occ, boxes)  # noqa: E731
+    got, want, k1 = fn(), plain(), multi()
+    torch.cuda.synchronize()
+    if not (same(got, want) and same(got, k1)):
+        raise AssertionError(f"single-pass baseline on {label}: differs "
+                             "from its plain version or from K1")
+    bms, by = bound(*multibox_work(bsz, dims, boxes))
+    call_ms = time_ms(fn)
+    return dict(name="fitmask_multibox_singlepass_baseline", case=label,
+                shape=[bsz, len(boxes), *dims], box_role="", box=None,
+                max_abs_err=max_abs_err(got, want), ms=device_ms(fn, call_ms),
+                call_ms=call_ms, plain_ms=time_ms(plain), library_ms=None,
+                bound_ms=bms, bound_by=by,
+                multibox_ms=device_ms(multi, time_ms(multi)))
+
+
 def kernel_phase(kernel, device):
     print(f"launch_floor_ms,{launch_floor_ms()}")
     rows = []
@@ -501,6 +573,7 @@ def kernel_phase(kernel, device):
                 ms=device_ms(fn, call_ms), call_ms=call_ms,
                 plain_ms=time_ms(plain), library_ms=lib_ms,
                 bound_ms=bms, bound_by=by))
+    rows.append(singlepass_row(kernel, *singlepass_input(device)))
     print("# kernel phase (bit-exact against the plain version). ms and "
           "library_ms: device time per launch, queued; call_ms and plain_ms: "
           "time per call, back to back")
@@ -514,6 +587,9 @@ def kernel_phase(kernel, device):
         print(f"{r['name']},{r['case']},{shape},{box},{r['max_abs_err']},"
               f"{r['ms']},{r['call_ms']},{r['plain_ms']},{lib},"
               f"{r['bound_ms']},{r['bound_by']}")
+        if "multibox_ms" in r:
+            print(f"# {r['case']}: one K1 launch {r['multibox_ms']} ms, "
+                  f"{r['ms'] / r['multibox_ms']}x faster than the baseline")
     return rows
 
 
@@ -1019,6 +1095,7 @@ FA_CASES = [   # label, B, S, H, KH, D, window
     ("qwen1.5-110b 64:8", SWEEP_B, SWEEP_S, 64, 8, 128, 8192),
     ("qwen2-vl-7b 28:4", SWEEP_B, SWEEP_S, 28, 4, 128, 8192),
     ("musicgen 24:24", SWEEP_B, SWEEP_S, 24, 24, 64, 8192),
+    ("llama4-scout 40:8", MOE_B, MOE_S, 40, 8, 128, 8192),
 ]
 # label, B, S, H, G (groups of B and C), P, N, chunk, with d_skip
 SSD_CASES = [
@@ -1182,39 +1259,71 @@ def seq_kernel_phase(device):
 
 # -- serve main paths: zamba2-1.2b and llama3-8b at full width ------------
 
-def matmul_flop(cfg, tokens):
-    """FLOP of the weight products one forward does (2 per weight element
-    per token), by the layer plan: a dense layer's attention and FFN
-    projections, d·hd·(2H + 2KH) + 3·d·d_ff (zamba2's shared block once
-    per group), Mamba2's in and out projections in every Mamba2 layer,
-    and the LM head (one per codebook for audio). Attention's own
-    products are K4's."""
+def matmul_flop(cfg, b, s):
+    """FLOP of the matrix products one forward of B x S tokens does
+    through cuBLAS (2 per weight element per token), by the layer plan:
+    attention's projections (GQA d·hd·(2H + 2KH); MLA's down and up
+    projections and output), a dense layer's FFN 3·d·d_ff (zamba2's
+    shared block once per group; deepseek's dense first layer), Mamba2's
+    in and out projections in every Mamba2 layer, an MoE layer's router,
+    shared experts and routed experts over all E·capacity slots (padded
+    slots are computed too), and the LM head (one per codebook for
+    audio). GQA attention's own products are K4's; MLA's run as einsums
+    over all S² (q, k) pairs and are counted here."""
     from repro_torch.models import model as lm
+    from repro_torch.models.ffn import capacity
     from repro_torch.models.ssm import mamba_dims
 
-    d = cfg.d_model
-    dense = (d * cfg.head_dim * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
-             + 3 * d * cfg.d_ff)
+    d, tokens = cfg.d_model, b * s
+    if cfg.use_mla:
+        h, qk = cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim
+        attn = (d * cfg.q_lora_rank + cfg.q_lora_rank * h * qk
+                + d * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+                + cfg.kv_lora_rank * h * (cfg.qk_nope_dim + cfg.v_head_dim)
+                + h * cfg.v_head_dim * d)
+        # scores and values: (B, H, S, S) by qk and by v_head_dim
+        attn_flop = 2 * b * h * s * s * (qk + cfg.v_head_dim)
+    else:
+        attn = d * cfg.head_dim * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+        attn_flop = 0
+    dense = attn + 3 * d * cfg.d_ff
     mamba = 0
     if cfg.ssm_state:
         di, h, n, g = mamba_dims(cfg)
         mamba = d * (2 * di + 2 * g * n + h) + di * d
+    moe = moe_dense = routed = 0
+    if cfg.n_experts:
+        f, e = cfg.moe_d_ff, cfg.n_experts
+        moe = attn + d * e + 3 * d * f * cfg.n_shared_experts
+        moe_dense = attn + 3 * d * (cfg.d_ff or f * (cfg.n_shared_experts
+                                                     + cfg.moe_top_k))
+        slots = (b * e * capacity(cfg, s) if cfg.moe_local_dispatch
+                 else e * capacity(cfg, tokens))
+        routed = 2 * 3 * d * f * slots
     per_token = d * cfg.vocab_size * max(cfg.n_codebooks, 1)
+    total = 0
     for sg in lm.layer_plan(cfg):
         per_token += sg.count * {"dense": dense, "mamba": mamba,
-                                 "hybrid_group": dense + len(sg.group) * mamba
-                                 }[sg.kind]
-    return 2 * tokens * per_token
+                                 "hybrid_group": dense + len(sg.group) * mamba,
+                                 "moe": moe, "moe_dense": moe_dense}[sg.kind]
+        if sg.kind in ("moe", "moe_dense"):
+            total += sg.count * attn_flop
+        if sg.kind == "moe":
+            total += sg.count * routed
+    return 2 * tokens * per_token + total
 
 
 def expected_launches(cfg):
-    """K4 once per attention layer (a dense layer, or a hybrid group's
-    shared block), K5 once per Mamba2 layer, on one kernel-path forward."""
+    """K4 once per GQA attention layer (a dense layer, a hybrid group's
+    shared block, an MoE family's layer without MLA), K5 once per Mamba2
+    layer, on one kernel-path forward. MLA takes no kernel."""
     from repro_torch.models import model as lm
 
     plan = lm.layer_plan(cfg)
+    attention = ("dense", "hybrid_group") + (
+        () if cfg.use_mla else ("moe", "moe_dense"))
     return {"flash_attention": sum(sg.count for sg in plan
-                                   if sg.kind in ("dense", "hybrid_group")),
+                                   if sg.kind in attention),
             "ssd_scan": sum(sg.count * max(len(sg.group), 1) for sg in plan
                             if sg.kind in ("mamba", "hybrid_group"))}
 
@@ -1312,13 +1421,52 @@ def model_batch(cfg, b, s, device):
     return batch
 
 
+@contextlib.contextmanager
+def recorded_routing():
+    """The expert ids of every MoE layer that forwards run inside the
+    block, in order (wraps ``models.ffn.router_probs``)."""
+    from repro_torch.models import ffn
+
+    ids, real = [], ffn.router_probs
+
+    def record(cfg, logits):
+        w, idx = real(cfg, logits)
+        ids.append(idx)
+        return w, idx
+
+    ffn.router_probs = record
+    try:
+        yield ids
+    finally:
+        ffn.router_probs = real
+
+
+def routing_flips(ids_kernel, ids_plain, b, s):
+    """(token, layer) routing choices that differ between two forwards'
+    recorded expert ids, the choices compared, and the first position
+    whose routing differs in any layer and row (``s`` if none)."""
+    def stack(ids):
+        return torch.stack([i.reshape(b, s, -1) for i in ids])
+
+    differ = (stack(ids_kernel) != stack(ids_plain)).any(-1)  # (L, B, S)
+    at = differ.any(0).any(0).nonzero()
+    return (int(differ.sum()), differ.numel(),
+            int(at[0, 0]) if len(at) else s)
+
+
 def prefill_pair(cfg, params, batch, label):
     """The kernel-path prefill (counted: exactly ``expected_launches``)
     and the plain path, then the pair again in the other order (the
     first calls also pay the allocator's growth and the libraries'
     first-use set-up; the second pair's peaks hold no other logits).
     Holds the kernel path within LOGIT_REL x max |logit| of the plain
-    path. Returns the counted launches."""
+    path. For an MoE model each layer's expert ids are recorded on both
+    paths: the (token, layer) choices that differ must stay within
+    MOE_FLIP_SHARE, and the logits are held up to the first position
+    whose routing differs (a flip at token t cannot reach an earlier
+    token: attention is causal, and the stable sort only moves later
+    tokens' pairs within an expert's segment). Returns the counted
+    launches."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.models import model as lm
@@ -1334,20 +1482,21 @@ def prefill_pair(cfg, params, batch, label):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        logits, _ = lm.forward(cfg, params, batch, use_kernel=use_kernel)
+        with recorded_routing() as ids:
+            logits, _ = lm.forward(cfg, params, batch, use_kernel=use_kernel)
         torch.cuda.synchronize()
         return (logits, time.perf_counter() - t0,
-                torch.cuda.max_memory_allocated())
+                torch.cuda.max_memory_allocated(), ids)
 
     want = expected_launches(cfg)
     reset()
-    fast, wall_k, peak_k = prefill(True)
+    fast, wall_k, peak_k, ids_k = prefill(True)
     launches = counts()
     if launches != want:
         raise AssertionError(f"{label} prefill launched {launches}; "
                              f"expected {want}")
     reset()
-    slow, wall_p, peak_p = prefill(False)
+    slow, wall_p, peak_p, ids_p = prefill(False)
     if any(counts().values()):
         raise AssertionError(f"the plain {label} prefill launched {counts()}")
     tokens = batch["tokens"]
@@ -1358,18 +1507,28 @@ def prefill_pair(cfg, params, batch, label):
         if tuple(lg.shape) != want_shape or not bool(torch.isfinite(lg).all()):
             raise AssertionError(f"{label} {name} prefill logits: shape "
                                  f"{tuple(lg.shape)} or not finite")
-    diff = float((fast - slow).abs().max())
-    scale = float(slow.abs().max())
+    held = want_shape[1]
+    if cfg.n_experts:
+        flips, choices, held = routing_flips(ids_k, ids_p, *want_shape[:2])
+        print("routing,arch,layers,choices,differ,first_differing_token")
+        print(f"routing,{label},{len(ids_k)},{choices},{flips},{held}")
+        if flips > MOE_FLIP_SHARE * choices or held == 0:
+            raise AssertionError(f"{label}: {flips} of {choices} routing "
+                                 "choices differ between the kernel and "
+                                 f"plain paths, the first at token {held}")
+    del ids_k, ids_p
+    diff = float((fast[:, :held] - slow[:, :held]).abs().max())
+    scale = float(slow[:, :held].abs().max())
     del fast, slow, lg
-    wall_p2, peak_p2 = prefill(False)[1:]
-    wall_k2, peak_k2 = prefill(True)[1:]
+    wall_p2, peak_p2 = prefill(False)[1:3]
+    wall_k2, peak_k2 = prefill(True)[1:3]
     print("prefill,arch,B,S,wall_kernel_s,wall_plain_s,wall_plain_2nd_s,"
           "wall_kernel_2nd_s,peak_kernel_bytes,peak_plain_bytes,"
           "peak_plain_2nd_bytes,peak_kernel_2nd_bytes,max_abs_dlogit,"
-          "max_abs_logit,limit")
+          "max_abs_logit,limit,tokens_held")
     print(f"prefill,{label},{want_shape[0]},{want_shape[1]},{wall_k},{wall_p},"
           f"{wall_p2},{wall_k2},{peak_k},{peak_p},{peak_p2},{peak_k2},{diff},"
-          f"{scale},{LOGIT_REL * scale}")
+          f"{scale},{LOGIT_REL * scale},{held}")
     if not diff <= LOGIT_REL * scale:
         raise AssertionError(f"{label} prefill logits: kernel path differs "
                              f"from the plain path by {diff} > {LOGIT_REL} "
@@ -1414,6 +1573,8 @@ def decode_against_prefill(cfg, params, batch, steps, device, label,
     torch.cuda.synchronize()
     wall_d = time.perf_counter() - t0
     dec = torch.stack(outs, 1)
+    if cfg.use_mla:
+        label = f"{label} ({'absorbed' if cfg.mla_absorb else 'naive'} MLA)"
     derr = float((dec - full).abs().max())
     print("decode_vs_prefill,arch,B,S,wall_prefill_s,wall_decode_s,"
           "ms_per_step,max_abs_dlogit,tol")
@@ -1432,6 +1593,7 @@ def decode_against_prefill(cfg, params, batch, steps, device, label,
         print("# %s decode drift from the prefill by position (no "
               "pos_offset in decode, as in repro): %s"
               % (label, [float(v) for v in drift[:6]]))
+    return dec
 
 
 def serve_phase(device, arch):
@@ -1449,7 +1611,7 @@ def serve_phase(device, arch):
     batch = model_batch(cfg, PREFILL_B, PREFILL_S, device)
     launches = prefill_pair(cfg, params, batch, arch)
     profile_prefill(lambda: lm.forward(cfg, params, batch, use_kernel=True),
-                    matmul_flop(cfg, PREFILL_B * PREFILL_S))
+                    matmul_flop(cfg, PREFILL_B, PREFILL_S))
     decode_against_prefill(cfg, params, batch, DECODE_S, device, arch)
     del params, batch
     torch.cuda.empty_cache()
@@ -1488,6 +1650,97 @@ def family_phase(device):
               f"{n_params},{launches[arch]['flash_attention']},"
               f"{time.perf_counter() - t0}")
     return launches
+
+
+def moe_phase(device):
+    """The MoE families at full width and cut depth (MOE), one at a time:
+    the prefill pair at MOE_B x MOE_S with routing recorded, a profile,
+    two kernel-path forwards bit for bit, MOE_DECODE decode steps against
+    the prefill at drop-free capacity (``capacity_factor = n_experts``,
+    as tests/test_arch_smoke.py; with MLA both decodes and against each
+    other), greedy serving through ``engine.greedy_decode`` and
+    ``launch.serve --smoke``. Returns each model's kernel-path launches."""
+    import io
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+    from repro_torch.serve import engine
+
+    launches = {}
+    for arch, layers in MOE:
+        t0 = time.perf_counter()
+        cfg, params, n_params, cut = build_model(arch, device, layers)
+        batch = model_batch(cfg, MOE_B, MOE_S, device)
+        launches[arch] = prefill_pair(cfg, params, batch, arch)
+        profile_prefill(
+            lambda: lm.forward(cfg, params, batch, use_kernel=True),
+            matmul_flop(cfg, MOE_B, MOE_S))
+
+        first, aux1 = lm.forward(cfg, params, batch, use_kernel=True)
+        again, aux2 = lm.forward(cfg, params, batch, use_kernel=True)
+        identical = torch.equal(first, again) and torch.equal(aux1, aux2)
+        print(f"repeat,{arch},bit_identical,{identical},aux,{float(aux1)}")
+        if not identical:
+            raise AssertionError(f"{arch}: two identical kernel-path "
+                                 "forwards differ")
+        del first, again
+
+        dcfg = cfg.replace(capacity_factor=float(cfg.n_experts))
+        decs = [decode_against_prefill(dcfg.replace(mla_absorb=absorb),
+                                       params, batch, MOE_DECODE, device,
+                                       arch)
+                for absorb in ((False, True) if cfg.use_mla else (False,))]
+        if len(decs) == 2:
+            gap = float((decs[0] - decs[1]).abs().max())
+            print(f"mla_decode,{arch},naive_vs_absorbed_max_abs,{gap},"
+                  f"tol,{DECODE_TOL}")
+            torch.testing.assert_close(
+                decs[1], decs[0], rtol=DECODE_TOL, atol=DECODE_TOL,
+                msg=lambda m: f"{arch}: absorbed MLA decode differs from "
+                f"the naive decode: {m}")
+        del decs
+
+        prompt = np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (MOE_SERVE_B, MOE_SERVE_PROMPT))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = engine.greedy_decode(cfg, params, prompt, steps=MOE_SERVE_GEN,
+                                   device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        print(f"greedy,{arch},B,{MOE_SERVE_B},prompt,{MOE_SERVE_PROMPT},"
+              f"generated,{MOE_SERVE_GEN},wall_s,{wall},tok_per_s,"
+              f"{MOE_SERVE_B * MOE_SERVE_GEN / wall}")
+        if tuple(out.shape) != (MOE_SERVE_B, MOE_SERVE_PROMPT + MOE_SERVE_GEN):
+            raise AssertionError(f"{arch} greedy_decode returned "
+                                 f"{tuple(out.shape)}")
+        del params, batch, out
+        torch.cuda.empty_cache()
+
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            serve.main(["--arch", arch, "--smoke"])
+        line = text.getvalue().strip().splitlines()[-1]
+        print(f"# repro_torch.launch.serve --arch {arch} --smoke")
+        print(line)
+        if json.loads(line)["output_shape"] != [4, 32]:
+            raise AssertionError(f"smoke serving returned {line}")
+        print(f"moe,{arch},{cfg.n_layers},{cut},{n_params},"
+              f"{launches[arch]['flash_attention']},"
+              f"{time.perf_counter() - t0}")
+    return launches
+
+
+def singlepass_path(kernel, device):
+    """The single-pass baseline's path: the bench's single-pass section
+    at SINGLEPASS_CELL. Returns the K3 launches it made."""
+    from benchmarks_torch.fitmask_bench import singlepass_sweep
+
+    kernel.reset_launch_counts()
+    singlepass_sweep(kernel, device, lambda fn: device_ms(fn, time_ms(fn)),
+                     cells=[SINGLEPASS_CELL])
+    torch.cuda.synchronize()
+    return kernel.launch_counts()["fitmask_batched"]
 
 
 def main() -> int:
@@ -1551,6 +1804,16 @@ def main() -> int:
     t0 = time.perf_counter()
     served.update(family_phase(device))
     phase_s["family sweep"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served.update(moe_phase(device))
+    phase_s["moe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    baseline = "fitmask_multibox_singlepass_baseline"
+    by_path[baseline] = {"fitmask_bench": singlepass_path(kernel, device)}
+    launches[baseline] = by_path[baseline]["fitmask_bench"]
+    if not launches[baseline]:
+        raise AssertionError("the single-pass section launched no K3")
+    phase_s["single-pass path"] = time.perf_counter() - t0
     for name in ("flash_attention", "ssd_scan"):
         by_path[name] = {arch: n[name] for arch, n in served.items()
                          if n[name]}
@@ -1563,14 +1826,16 @@ def main() -> int:
     # single-box kernel: its largest in-grid box there; the fused launch:
     # a fleet of six's 8^3 flush; K4: the llama3-8b prefill shape, K5:
     # the zamba2 prefill shape, both in fp32, the type the serve path
-    # runs).
+    # runs; the single-pass baseline: its one cell).
     heaviest = {"fitmask_multibox": ("cubes 8^3", "box_role", ""),
                 "fitmask_batched": ("static 16^3", "box_role", "largest"),
                 "occupancy_counts": ("cubes 4^3", "box_role", ""),
                 "fitmask_multibox_bucketed": ("fleet 48 x 8^3", "box_role",
                                               ""),
                 "flash_attention": ("llama3-8b 32:8", "dtype", "float32"),
-                "ssd_scan": ("path", "dtype", "float32")}
+                "ssd_scan": ("path", "dtype", "float32"),
+                baseline: (f"singlepass {SINGLEPASS_CELL[0][0]}^3",
+                           "box_role", "")}
     entries = []
     for name, (case, key, value) in heaviest.items():
         r = next(r for r in rows if r["name"] == name and r["case"] == case

@@ -19,6 +19,12 @@ kernel launch and nowhere else):
   broker's flush, as ``repro``'s ``JaxEngine._bucket_fn`` answers it
   (``repro/kernels/fitmask/ops.py``).
 
+:func:`fitmask_multibox_singlepass_baseline` is no kernel of its own:
+K launches of :func:`fitmask_batched` (each counted there), stacked —
+the design from before the multi-box kernel, kept as the baseline that
+``benchmarks_torch/fitmask_bench.py`` times K1 against, as ``repro``'s
+function of that name is for its bench.
+
 A wrapper takes its plain version only for a tensor on the CPU. For a
 CUDA tensor it launches the kernel or raises; nothing falls back. The
 kernels are CUDA C++ in ``repro_torch/csrc/fitmask.cu``, compiled with
@@ -357,6 +363,16 @@ def fitmask_multibox_bucketed_plain(occ: torch.Tensor, boxes):
     return fitmask_multibox_plain(occ, boxes) != 0, occupancy_counts_plain(occ)
 
 
+def fitmask_multibox_singlepass_baseline_plain(occ: torch.Tensor,
+                                               boxes) -> torch.Tensor:
+    """Plain version of :func:`fitmask_multibox_singlepass_baseline`:
+    the K plain single-box planes, stacked."""
+    if len(boxes) == 0:
+        return fitmask_multibox_plain(occ, boxes)
+    return torch.stack([fitmask_batched_plain(occ, box) for box in boxes],
+                       dim=1)
+
+
 # -- kernel wrappers ---------------------------------------------------
 
 def fitmask_multibox(occ: torch.Tensor, boxes) -> torch.Tensor:
@@ -433,6 +449,20 @@ def fitmask_multibox_bucketed(occ: torch.Tensor, boxes):
 
 
 fitmask_multibox_bucketed.launches = 0
+
+
+def fitmask_multibox_singlepass_baseline(occ: torch.Tensor,
+                                         boxes) -> torch.Tensor:
+    """K independent single-box launches (:func:`fitmask_batched`)
+    stacked on a new axis 1: the (B, K, X, Y, Z) int32 planes of
+    :func:`fitmask_multibox` from K passes over the grids instead of one.
+    On a CPU tensor each is the plain single-box version."""
+    bsz, x, y, z = occ.shape
+    if len(boxes) == 0:
+        return torch.zeros((bsz, 0, x, y, z), dtype=torch.int32,
+                           device=occ.device)
+    return torch.stack([fitmask_batched(occ, tuple(box)) for box in boxes],
+                       dim=1)
 
 KERNELS = (fitmask_multibox, fitmask_batched, occupancy_counts,
            fitmask_multibox_bucketed)

@@ -5,9 +5,11 @@ params regardless of family.
 Kinds ported so far:
   dense        — norm -> attention (GQA) -> norm -> gated FFN
   shared_attn  — the same block, shared by the groups of a hybrid stack
+  moe          — norm -> attention (GQA or MLA) -> norm -> MoE FFN
+  moe_dense    — the same with a gated FFN (DeepSeek's first-k-dense)
   mamba        — norm -> Mamba2 mixer
-The moe, moe_dense, mlstm and slstm kinds of ``repro.models.blocks``
-come with their families; asking for one raises ``ValueError``.
+The mlstm and slstm kinds of ``repro.models.blocks`` come with their
+family; asking for one raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -15,9 +17,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from .attention import attention_forward, init_attention, init_kv_cache
+from .attention import (attention_forward, init_attention, init_kv_cache,
+                        init_mla, init_mla_cache, mla_forward)
 from .common import ModelConfig, Params, apply_norm, init_norm
-from .ffn import ffn_forward, init_ffn
+from .ffn import ffn_forward, init_ffn, init_moe, moe_forward
 from .ssm import init_mamba2, init_mamba_state, mamba2_forward
 
 
@@ -29,6 +32,17 @@ def init_layer(cfg: ModelConfig, generator: Optional[torch.Generator],
             "attn": init_attention(cfg, generator, device),
             "ffn": init_ffn(cfg, generator, device),
         }
+    if kind in ("moe", "moe_dense"):
+        attn = (init_mla(cfg, generator, device) if cfg.use_mla
+                else init_attention(cfg, generator, device))
+        p = {"ln1": init_norm(cfg, device), "ln2": init_norm(cfg, device),
+             "attn": attn}
+        if kind == "moe":
+            p["moe"] = init_moe(cfg, generator, device)
+        else:
+            p["ffn"] = init_ffn(cfg, generator, device, d_ff=cfg.d_ff or (
+                cfg.moe_d_ff * (cfg.n_shared_experts + cfg.moe_top_k)))
+        return p
     if kind == "mamba":
         return {"ln1": init_norm(cfg, device),
                 "mixer": init_mamba2(cfg, generator, device)}
@@ -39,6 +53,11 @@ def init_layer_state(cfg: ModelConfig, kind: str, batch: int, window: int,
                      dtype, device: torch.device) -> Optional[Params]:
     """Decode-time state for one layer."""
     if kind in ("dense", "shared_attn"):
+        return init_kv_cache(batch, window, cfg.n_kv_heads, cfg.head_dim,
+                             dtype, device)
+    if kind in ("moe", "moe_dense"):
+        if cfg.use_mla:
+            return init_mla_cache(cfg, batch, window, dtype, device)
         return init_kv_cache(batch, window, cfg.n_kv_heads, cfg.head_dim,
                              dtype, device)
     if kind == "mamba":
@@ -53,14 +72,22 @@ def apply_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
     """Returns (x_out, new_state, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind in ("dense", "shared_attn"):
+    if kind in ("dense", "shared_attn", "moe", "moe_dense"):
         h = apply_norm(cfg, p["ln1"], x)
-        att, new_state = attention_forward(cfg, p["attn"], h, positions,
-                                           cache=state, window=window,
-                                           use_flash=use_kernel)
+        if cfg.use_mla and kind in ("moe", "moe_dense"):
+            att, new_state = mla_forward(cfg, p["attn"], h, positions,
+                                         cache=state, window=window)
+        else:
+            att, new_state = attention_forward(cfg, p["attn"], h, positions,
+                                               cache=state, window=window,
+                                               use_flash=use_kernel)
         x = x + att
         h = apply_norm(cfg, p["ln2"], x)
-        return x + ffn_forward(cfg, p["ffn"], h), new_state, aux
+        if kind == "moe":
+            ff, aux = moe_forward(cfg, p["moe"], h)
+        else:
+            ff = ffn_forward(cfg, p["ffn"], h)
+        return x + ff, new_state, aux
     if kind == "mamba":
         h = apply_norm(cfg, p["ln1"], x)
         out, new_state = mamba2_forward(cfg, p["mixer"], h, state=state,

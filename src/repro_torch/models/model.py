@@ -8,6 +8,8 @@ loop that indexes the stacked tensors. Heterogeneous patterns are loops
 over *groups*:
 
   dense/audio/vlm : n_layers x dense (stacked)
+  moe             : first_k_dense moe_dense layers (a list), then the
+                    rest as moe layers (stacked)
   hybrid (zamba2) : G x [shared_attn ; k x mamba] (stacked) + leftover
                     mamba layers (a list); the attention block params are
                     SHARED, applied once at the start of each group.
@@ -22,8 +24,7 @@ stub ``embeds`` input in place of tokens.
 ``repro``'s ``remat`` (rematerialisation under ``jax.checkpoint``) and
 ``force_unscanned`` (unrolled layers for XLA cost analysis) do not apply
 to an eager forward without autograd: the fields stay in the config and
-are ignored here. The moe and ssm (xLSTM) families come with their
-blocks.
+are ignored here. The ssm (xLSTM) family comes with its blocks.
 """
 from __future__ import annotations
 
@@ -59,6 +60,32 @@ def tree_stack(trees: List):
     return torch.stack(trees)
 
 
+def tree_leaves(tree) -> List:
+    """The tensors of a tree, in ``tree_map``'s order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def stacked_init(fn: Callable[[], Any], count: int):
+    """``count`` trees from ``fn()``, drawn in order and stacked along a
+    new leading axis, as ``tree_stack([fn() for _ in range(count)])``
+    but holding the stack and one layer at a time: a full-width layer of
+    an MoE model is gigabytes."""
+    out = None
+    for i in range(count):
+        layer = fn()
+        if out is None:
+            out = tree_map(
+                lambda t: t.new_empty((count,) + tuple(t.shape)), layer)
+        for dst, src in zip(tree_leaves(out), tree_leaves(layer)):
+            dst[i].copy_(src)
+        del layer
+    return out
+
+
 def tree_index(tree, i: int):
     """Layer ``i`` of a stacked tree (views of the stacked tensors)."""
     return tree_map(lambda leaf: leaf[i], tree)
@@ -80,6 +107,12 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
     at = cfg.arch_type
     if at in ("dense", "audio", "vlm"):
         return [Segment("dense", cfg.n_layers, True)]
+    if at == "moe":
+        segs: List[Segment] = []
+        if cfg.first_k_dense:
+            segs.append(Segment("moe_dense", cfg.first_k_dense, False))
+        segs.append(Segment("moe", cfg.n_layers - cfg.first_k_dense, True))
+        return segs
     if at == "hybrid":  # zamba2
         k = cfg.shared_attn_every
         g, rem = divmod(cfg.n_layers, k)
@@ -88,7 +121,7 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
             segs.append(Segment("mamba", rem, False))
         return segs
     raise ValueError(f"arch type {at!r} is not ported yet; repro_torch has "
-                     "the dense (with audio and vlm) and hybrid stacks")
+                     "the dense (with audio and vlm), moe and hybrid stacks")
 
 
 # ----------------------------------------------------------------------
@@ -120,8 +153,8 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         else:
             def one(seg=seg):
                 return init_layer(cfg, generator, device, seg.kind)
-        layers = [one() for _ in range(seg.count)]
-        seg_params.append(tree_stack(layers) if seg.scanned else layers)
+        seg_params.append(stacked_init(one, seg.count) if seg.scanned
+                          else [one() for _ in range(seg.count)])
     params["segments"] = seg_params
     if cfg.arch_type == "hybrid":
         params["shared_attn"] = init_layer(cfg, generator, device,

@@ -1,9 +1,9 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
 against their plain PyTorch versions on the card, the placement loop
 the chaos scenarios and the allocator daemon through the ``cuda``
-engine against the host ``numpy`` engine, and the zamba2 smoke model's
-forward through the
-kernels against its plain path.
+engine against the host ``numpy`` engine, and the smoke models'
+forwards (zamba2, the dense-stack and MoE families) through the kernels
+against their plain paths.
 Every test is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor ``repro``, so it also runs where only the
 port's requirements are installed:
@@ -763,3 +763,82 @@ def test_family_smoke_forward_through_kernel_matches_plain_on_card(card,
     torch.cuda.synchronize()
     assert tfa.launch_counts() == {"flash_attention": 3}
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# -- the MoE families (llama4-scout on K4, deepseek-v2 with MLA) -----------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_llama4_scout_layout_on_card(card, dtype):
+    """K4 at llama4-scout's GQA 40:8 (groups of 5), D 128."""
+    rng = np.random.default_rng(40)
+    b, s = 1, 333
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .to(card, dtype) for shape in
+               ((b, s, 40, 128), (b, s, 8, 128), (b, s, 8, 128)))
+    tfa.reset_launch_counts()
+    got = tfa.flash_attention(q, k, v, causal=True, window=8192)
+    want = tfa.flash_attention_plain(q, k, v, causal=True, window=8192)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts() == {"flash_attention": 1}
+    atol, rtol = FA_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.parametrize("arch,launches", [("llama4-scout-17b-a16e", 3),
+                                           ("deepseek-v2-236b", 0)])
+def test_moe_smoke_forward_through_kernel_on_card(card, arch, launches):
+    """One kernel-path prefill per MoE family at smoke width: K4 once per
+    layer without MLA, never with it; logits against the plain path, and
+    a second kernel-path forward bit for bit (the dispatch's combine adds
+    in a fixed order)."""
+    cfg = smoke_variant(get_config(arch), n_layers=3)
+    params = tlm.init_model(cfg, torch.Generator(card).manual_seed(0), card)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 64))).to(card)
+    want, want_aux = tlm.forward(cfg, params, {"tokens": toks})
+    tfa.reset_launch_counts()
+    got, aux = tlm.forward(cfg, params, {"tokens": toks}, use_kernel=True)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts() == {"flash_attention": launches}
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux, want_aux, rtol=1e-5, atol=1e-6)
+    again, aux2 = tlm.forward(cfg, params, {"tokens": toks}, use_kernel=True)
+    assert torch.equal(again, got) and torch.equal(aux2, aux)
+
+
+def test_singlepass_baseline_bit_exact_against_k1_on_card(card):
+    """K launches of K3 stacked equal one K1 launch at 16^3, B 8, K 4,
+    and each K3 launch is counted."""
+    rng = np.random.default_rng(16)
+    occ = torch.from_numpy(rng.uniform(size=(8, 16, 16, 16)) < 0.3).to(card)
+    boxes = [(4, 4, 4), (8, 4, 2), (2, 2, 2), (16, 2, 2)]
+    tk.reset_launch_counts()
+    got = tk.fitmask_multibox_singlepass_baseline(occ, boxes)
+    want = tk.fitmask_multibox(occ, boxes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(
+        got, tk.fitmask_multibox_singlepass_baseline_plain(occ, boxes))
+    assert tk.launch_counts()["fitmask_batched"] == 4
+    assert tk.launch_counts()["fitmask_multibox"] == 1
+
+
+def test_init_model_holds_one_layer_beside_the_stack_on_card(card):
+    """A scanned segment's stack is filled layer by layer: init's peak is
+    the model plus about one layer (a layer's leaf is briefly held twice
+    while it is scaled), not the model twice as with a list of layers
+    stacked at the end."""
+    cfg = smoke_variant(get_config("llama4-scout-17b-a16e"), n_layers=8,
+                        d_model=512, moe_d_ff=1024)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = tlm.init_model(cfg, torch.Generator(card).manual_seed(0), card)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    total = sum(t.numel() * t.element_size() for t in tlm.tree_leaves(params))
+    layer = sum(t[0].numel() * t.element_size()
+                for t in tlm.tree_leaves(params["segments"][0]))
+    assert peak <= total + 2 * layer, (peak, total, layer)
+    assert 2 * layer < total - 2 * layer   # the bound tells the two apart

@@ -90,7 +90,9 @@ def _step_positions(cfg, b, t):
 def test_registry_lists_ported_archs_in_repros_order():
     assert set(FAMILIES) <= set(ARCH_IDS)
     assert ARCH_IDS == [a for a in JARCH_IDS if a in ARCH_IDS]
-    assert sorted(ARCH_IDS) == sorted(FAMILIES + ["zamba2-1.2b"])
+    assert sorted(ARCH_IDS) == sorted(
+        FAMILIES + ["zamba2-1.2b", "deepseek-v2-236b",
+                    "llama4-scout-17b-a16e"])
 
 
 @pytest.mark.parametrize("arch", FAMILIES)

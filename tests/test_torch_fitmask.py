@@ -84,6 +84,24 @@ def test_multibox_k1_equals_single_box():
         assert torch.equal(multi[:, 0], tk.fitmask_batched(t, box)), box
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_singlepass_baseline_matches_pallas(seed):
+    """K single-box passes stacked, as repro's baseline (interpret mode),
+    and equal to one multi-box pass; K = 0 gives an empty axis."""
+    occ, boxes = _case(seed)
+    want = np.asarray(pallas.fitmask_multibox_singlepass_baseline(
+        jnp.array(occ), boxes, interpret=True))
+    t = torch.from_numpy(occ)
+    for out in (tk.fitmask_multibox_singlepass_baseline(t, boxes),
+                tk.fitmask_multibox_singlepass_baseline_plain(t, boxes)):
+        assert out.dtype == torch.int32 and out.shape == want.shape
+        assert (out.numpy() == want).all()
+        assert torch.equal(out, tk.fitmask_multibox(t, boxes))
+    for fn in (tk.fitmask_multibox_singlepass_baseline,
+               tk.fitmask_multibox_singlepass_baseline_plain):
+        assert fn(t, []).shape == (t.shape[0], 0) + t.shape[1:]
+
+
 def test_multibox_empty_box_list():
     t = torch.zeros((2, 4, 4, 4), dtype=torch.bool)
     assert tk.fitmask_multibox_plain(t, []).shape == (2, 0, 4, 4, 4)

@@ -86,11 +86,11 @@ def test_configs_match_repro(over):
 
 
 def test_unported_arch_raises_key_error():
-    jget_config("deepseek-v2-236b")   # exists in repro
+    jget_config("xlstm-1.3b")   # exists in repro
     with pytest.raises(KeyError, match="zamba2-1.2b"):
-        get_config("deepseek-v2-236b")
+        get_config("xlstm-1.3b")
     with pytest.raises(ValueError, match="not ported"):
-        tlm.layer_plan(get_config("zamba2-1.2b").replace(arch_type="moe"))
+        tlm.layer_plan(get_config("zamba2-1.2b").replace(arch_type="ssm"))
 
 
 @pytest.mark.parametrize("use_flash", [False, True])

@@ -143,9 +143,10 @@ import benchmarks_torch.crash_loop, benchmarks_torch.failover_drill
 import benchmarks_torch.service_bench
 import repro_torch.configs.registry as reg
 for mod in ("llama3_8b", "phi4_mini_3_8b", "qwen1_5_110b", "olmo_1b",
-            "qwen2_vl_7b", "musicgen_medium", "zamba2_1_2b"):
+            "qwen2_vl_7b", "musicgen_medium", "zamba2_1_2b",
+            "deepseek_v2_236b", "llama4_scout_17b_a16e"):
     assert "repro_torch.configs." + mod in sys.modules, mod
-assert len(reg.ARCH_IDS) == 7, reg.ARCH_IDS
+assert len(reg.ARCH_IDS) == 9, reg.ARCH_IDS
 examples = sorted(glob.glob(os.path.join("examples_torch", "*.py")))
 assert len(examples) >= 2, examples
 for path in examples:
