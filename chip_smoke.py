@@ -119,15 +119,38 @@
    greedy serving through ``engine.greedy_decode`` on the cut model
    (B 4, 16 + 16 tokens) and ``repro_torch.launch.serve --arch <model>
    --smoke`` on the card.
-12. The single-pass baseline's path: ``benchmarks_torch/fitmask_bench.py``'s
+12. xLSTM phase: xlstm-1.3b at full width and depth (48 layers: 6
+   groups of one sLSTM and seven mLSTM layers; fp32, random weights from
+   seed 0), alone on the card. The prefill pair at B 1 x S 2048 (no
+   kernel on this family: exactly 0 K4 and 0 K5 launches), the
+   kernel-path and plain forwards bit for bit, wall and peak memory, the
+   prefill's wall split between the sLSTM layers (the loop over S), the
+   mLSTM parallel forms and the rest (CUDA events), a torch.profiler
+   profile of one group of 8 layers with the embedding and head (GEMMs,
+   the device's busy share), 16 decode steps against the
+   prefill within DECODE_TOL, and greedy serving through
+   ``repro_torch.launch.serve --arch xlstm-1.3b`` at its defaults.
+13. Training phase: ``repro_torch.launch.train --arch olmo-1b --steps 10
+   --batch 2 --seq 2048`` at full width and depth on the card (the plain
+   path, as repro trains; 0 K4 launches), each step timed: CE must fall;
+   s a step over steps 2-10, tokens/s, peak memory and the model-FLOP
+   rate against the fp32 peak are printed. Then one smoke train step of
+   olmo-1b and of xlstm-1.3b on the card against the same step on the
+   CPU (the loss; the grads within rtol 1e-4 and 1e-4 of each leaf's
+   largest grad; AdamW from the same grads within 1e-6),
+   ``train_step_accum`` with two micro-batches against the full batch,
+   a checkpoint saved and loaded on the card bit for bit, and
+   ``train_step(use_kernel=True)`` refused (K4 has no backward).
+14. The single-pass baseline's path: ``benchmarks_torch/fitmask_bench.py``'s
    single-pass section at its headline cell (16^3, B 8, K 4).
-13. Prints one JSON line per the kernel table (K4's launches by served
+15. Prints one JSON line per the kernel table (K4's launches by served
    model), then the result line.
 
 Launch counters are set to 0 just before each main path (placement,
 fleet, each run of the scenario path, service, each model's kernel-path
-prefill, the bench's single-pass section) and read just after; every
-kernel must have been launched on a path.
+prefill, the training run, the bench's single-pass section) and read
+just after; every kernel must have been launched on a path, and none on
+the xLSTM prefill or the training run.
 
 Any failure raises and exits non-zero. With no CUDA device, or without
 the repository's ``src/repro_torch`` beside it, it exits non-zero and
@@ -251,6 +274,17 @@ MOE_SERVE_B, MOE_SERVE_PROMPT, MOE_SERVE_GEN = 4, 16, 16
 # kernel and plain prefills: K4 and the einsum round differently, and a
 # top-1 router flips where two logits nearly tie.
 MOE_FLIP_SHARE = 1e-3
+# The xLSTM phase: xlstm-1.3b at full width and depth (2.47e9 parameters,
+# 9.9 GB fp32); no kernel on its path.
+XLSTM = "xlstm-1.3b"
+XLSTM_B, XLSTM_S, XLSTM_DECODE = 1, 2048, 16
+# The training phase: olmo-1b at full width and depth through
+# repro_torch.launch.train (the plain path, as repro trains), and
+# tests/test_train_substrate.py's bound on accumulation's rounding.
+TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S = "olmo-1b", 10, 2, 2048
+ACCUM_TOL = 5e-4
+# Card-against-CPU train steps at the CPU tests' size (B 2 x S 16).
+TRAIN_CHECK_BS = (2, 16)
 # The single-pass baseline's cell: benchmarks_torch/fitmask_bench.py's
 # headline (16^3, B 8, K 4).
 SINGLEPASS_CELL = ((16, 16, 16), 8, 4)
@@ -1269,10 +1303,14 @@ def matmul_flop(cfg, b, s):
     shared experts and routed experts over all E·capacity slots (padded
     slots are computed too), and the LM head (one per codebook for
     audio). GQA attention's own products are K4's; MLA's run as einsums
-    over all S² (q, k) pairs and are counted here."""
+    over all S² (q, k) pairs and are counted here, as are the xLSTM's:
+    an mLSTM layer's projections and its parallel form's two (B, H, S,
+    S) products, an sLSTM layer's input, recurrent (four gates a step)
+    and output products."""
     from repro_torch.models import model as lm
     from repro_torch.models.ffn import capacity
     from repro_torch.models.ssm import mamba_dims
+    from repro_torch.models.xlstm import mlstm_dims
 
     d, tokens = cfg.d_model, b * s
     if cfg.use_mla:
@@ -1300,23 +1338,33 @@ def matmul_flop(cfg, b, s):
         slots = (b * e * capacity(cfg, s) if cfg.moe_local_dispatch
                  else e * capacity(cfg, tokens))
         routed = 2 * 3 * d * f * slots
+    mlstm = slstm = mlstm_flop = 0
+    if cfg.arch_type == "ssm":
+        di, h, dqk, dv = mlstm_dims(cfg)
+        mlstm = d * 2 * di + di * h * (2 * dqk + dv + 2) + di * d
+        slstm = d * 4 * d + 4 * d * (d // h) + d * d
+        mlstm_flop = 2 * b * h * s * s * (dqk + dv)
     per_token = d * cfg.vocab_size * max(cfg.n_codebooks, 1)
     total = 0
     for sg in lm.layer_plan(cfg):
-        per_token += sg.count * {"dense": dense, "mamba": mamba,
-                                 "hybrid_group": dense + len(sg.group) * mamba,
-                                 "moe": moe, "moe_dense": moe_dense}[sg.kind]
+        per_token += sg.count * {
+            "dense": dense, "mamba": mamba,
+            "hybrid_group": dense + len(sg.group) * mamba,
+            "xlstm_group": slstm + (len(sg.group) - 1) * mlstm,
+            "moe": moe, "moe_dense": moe_dense}[sg.kind]
         if sg.kind in ("moe", "moe_dense"):
             total += sg.count * attn_flop
         if sg.kind == "moe":
             total += sg.count * routed
+        if sg.kind == "xlstm_group":
+            total += sg.count * (len(sg.group) - 1) * mlstm_flop
     return 2 * tokens * per_token + total
 
 
 def expected_launches(cfg):
     """K4 once per GQA attention layer (a dense layer, a hybrid group's
     shared block, an MoE family's layer without MLA), K5 once per Mamba2
-    layer, on one kernel-path forward. MLA takes no kernel."""
+    layer, on one kernel-path forward. MLA and the xLSTM take no kernel."""
     from repro_torch.models import model as lm
 
     plan = lm.layer_plan(cfg)
@@ -1460,13 +1508,14 @@ def prefill_pair(cfg, params, batch, label):
     first calls also pay the allocator's growth and the libraries'
     first-use set-up; the second pair's peaks hold no other logits).
     Holds the kernel path within LOGIT_REL x max |logit| of the plain
-    path. For an MoE model each layer's expert ids are recorded on both
-    paths: the (token, layer) choices that differ must stay within
-    MOE_FLIP_SHARE, and the logits are held up to the first position
-    whose routing differs (a flip at token t cannot reach an earlier
-    token: attention is causal, and the stable sort only moves later
-    tokens' pairs within an expert's segment). Returns the counted
-    launches."""
+    path, or bit for bit where no kernel is on the path (MLA, the
+    xLSTM: the two paths are one computation). For an MoE model each
+    layer's expert ids are recorded on both paths: the (token, layer)
+    choices that differ must stay within MOE_FLIP_SHARE, and the logits
+    are held up to the first position whose routing differs (a flip at
+    token t cannot reach an earlier token: attention is causal, and the
+    stable sort only moves later tokens' pairs within an expert's
+    segment). Returns the counted launches."""
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.models import model as lm
@@ -1522,17 +1571,17 @@ def prefill_pair(cfg, params, batch, label):
     del fast, slow, lg
     wall_p2, peak_p2 = prefill(False)[1:3]
     wall_k2, peak_k2 = prefill(True)[1:3]
+    limit = LOGIT_REL * scale if any(want.values()) else 0.0
     print("prefill,arch,B,S,wall_kernel_s,wall_plain_s,wall_plain_2nd_s,"
           "wall_kernel_2nd_s,peak_kernel_bytes,peak_plain_bytes,"
           "peak_plain_2nd_bytes,peak_kernel_2nd_bytes,max_abs_dlogit,"
           "max_abs_logit,limit,tokens_held")
     print(f"prefill,{label},{want_shape[0]},{want_shape[1]},{wall_k},{wall_p},"
           f"{wall_p2},{wall_k2},{peak_k},{peak_p},{peak_p2},{peak_k2},{diff},"
-          f"{scale},{LOGIT_REL * scale},{held}")
-    if not diff <= LOGIT_REL * scale:
+          f"{scale},{limit},{held}")
+    if not diff <= limit:
         raise AssertionError(f"{label} prefill logits: kernel path differs "
-                             f"from the plain path by {diff} > {LOGIT_REL} "
-                             f"* {scale}")
+                             f"from the plain path by {diff} > {limit}")
     return launches
 
 
@@ -1731,6 +1780,329 @@ def moe_phase(device):
     return launches
 
 
+@contextlib.contextmanager
+def xlstm_marks():
+    """CUDA events around every sLSTM layer (the loop over S with its
+    input and output projections) and every mLSTM parallel form that
+    forwards run inside the block: yields a list that the block fills
+    with (kind, start, end) events (wraps ``models.blocks.slstm_forward``
+    and ``models.xlstm._mlstm_parallel``)."""
+    from repro_torch.models import blocks, xlstm
+
+    marks, real = [], (blocks.slstm_forward, xlstm._mlstm_parallel)
+
+    def marked(kind, fn):
+        def run(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            marks.append((kind, start, end))
+            return out
+        return run
+
+    blocks.slstm_forward = marked("slstm", real[0])
+    xlstm._mlstm_parallel = marked("mlstm_parallel", real[1])
+    try:
+        yield marks
+    finally:
+        blocks.slstm_forward, xlstm._mlstm_parallel = real
+
+
+def xlstm_split(cfg, params, batch):
+    """One kernel-path prefill with the sLSTM layers and the mLSTM
+    parallel forms marked by CUDA events (no host sync inside): each
+    region's time on the device's timeline (launch-bound regions keep
+    the card waiting, so this is their share of the wall) beside the
+    wall. Returns the sLSTM share."""
+    from repro_torch.models import model as lm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with xlstm_marks() as marks:
+        lm.forward(cfg, params, batch, use_kernel=True)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kind = {"slstm": 0.0, "mlstm_parallel": 0.0}
+    for kind, start, end in marks:
+        by_kind[kind] += start.elapsed_time(end)
+    rest = wall_ms - sum(by_kind.values())
+    print("xlstm_split,arch,wall_ms,slstm_layers_ms,slstm_share,"
+          "slstm_layers,mlstm_parallel_ms,mlstm_parallel_share,"
+          "mlstm_layers,rest_ms")
+    print(f"xlstm_split,{cfg.name},{wall_ms},{by_kind['slstm']},"
+          f"{by_kind['slstm'] / wall_ms},"
+          f"{sum(k == 'slstm' for k, _, _ in marks)},"
+          f"{by_kind['mlstm_parallel']},"
+          f"{by_kind['mlstm_parallel'] / wall_ms},"
+          f"{sum(k == 'mlstm_parallel' for k, _, _ in marks)},{rest}")
+    return by_kind["slstm"] / wall_ms
+
+
+def xlstm_phase(device):
+    """xlstm-1.3b at full width and depth (48 layers, fp32, random
+    weights from SEED), alone on the card: the prefill pair at XLSTM_B x
+    XLSTM_S (no kernel on this family: exactly 0 K4 and 0 K5 launches,
+    and the kernel-path and plain forwards bit for bit), the split of
+    one prefill's wall between the sLSTM layers, the mLSTM parallel
+    forms and the rest, a profile of one group of layers (GEMMs and the
+    device's busy share), XLSTM_DECODE decode steps against the
+    prefill, and greedy serving through ``repro_torch.launch.serve
+    --arch xlstm-1.3b`` at its defaults. Returns the kernel-path
+    prefill's launches."""
+    import io
+
+    from repro_torch.launch import serve
+    from repro_torch.models import model as lm
+
+    t0 = time.perf_counter()
+    cfg, params, n_params, _ = build_model(XLSTM, device)
+    batch = model_batch(cfg, XLSTM_B, XLSTM_S, device)
+    launches = prefill_pair(cfg, params, batch, XLSTM)
+    steps = {"prefill pair": time.perf_counter() - t0}
+    t1 = time.perf_counter()
+    share = xlstm_split(cfg, params, batch)
+    steps["split"] = time.perf_counter() - t1
+    # The profiler turns each of the sLSTM loop's ~4e5 launches into
+    # events; one group of layers (one sLSTM and seven mLSTM layers, a
+    # sixth of the stack) with the embedding and head keeps its trace
+    # small.
+    t1 = time.perf_counter()
+    group = cfg.replace(n_layers=cfg.slstm_every)
+    one = dict(params, segments=[lm.tree_map(lambda t: t[:1],
+                                             params["segments"][0])])
+    print(f"# profile of one group: {group.n_layers} of {cfg.n_layers} "
+          "layers, the embedding and the head")
+    profile_prefill(lambda: lm.forward(group, one, batch, use_kernel=True),
+                    matmul_flop(group, XLSTM_B, XLSTM_S))
+    steps["profile"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    decode_against_prefill(cfg, params, batch, XLSTM_DECODE, device, XLSTM)
+    steps["decode"] = time.perf_counter() - t1
+    del params, batch, one
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--arch", XLSTM])
+    line = out.getvalue().strip().splitlines()[-1]
+    print(f"# greedy serving, repro_torch.launch.serve --arch {XLSTM} at its "
+          "defaults")
+    print(line)
+    if json.loads(line)["output_shape"] != [4, 32]:
+        raise AssertionError(f"greedy serving returned {line}")
+    torch.cuda.empty_cache()
+    steps["serve"] = time.perf_counter() - t1
+    print("# xlstm phase seconds: %s" % ", ".join(
+        f"{k} {v:.1f}" for k, v in steps.items()))
+    print(f"xlstm,{XLSTM},{cfg.n_layers},{n_params},"
+          f"{launches['flash_attention']},{launches['ssd_scan']},{share},"
+          f"{time.perf_counter() - t0}")
+    return launches
+
+
+def train_flop(cfg, b, s):
+    """Model FLOP of one train step at B x S: three times the forward's
+    (backward twice the forward), the forward being ``matmul_flop`` and,
+    per attention layer, the causal half of the (S, S) products,
+    2·B·H·S²·head_dim (the plain path computes the whole square)."""
+    from repro_torch.models import model as lm
+
+    attn = sum(sg.count for sg in lm.layer_plan(cfg) if sg.kind == "dense")
+    return 3 * (matmul_flop(cfg, b, s)
+                + attn * 2 * b * cfg.n_heads * s * s * cfg.head_dim)
+
+
+@contextlib.contextmanager
+def timed_train_steps():
+    """The wall of every train step that ``repro_torch.launch.train`` runs
+    inside the block, each ended by a synchronize (wraps the launcher's
+    ``train_step``)."""
+    from repro_torch.launch import train
+
+    walls, real = [], train.train_step
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return out
+
+    train.train_step = timed
+    try:
+        yield walls
+    finally:
+        train.train_step = real
+
+
+def grad_atol(ref):
+    """The absolute tolerance of a grad leaf against ``ref``: a 1e-4 share
+    of the leaf's largest |grad|, and at least the CPU tests' 1e-6. An
+    elementwise 1e-6 holds where two runs add in the same order (the
+    port against repro on the CPU); another order moves the xLSTM's
+    grads by more (1.6e-6 under a one-ulp perturbation of the params,
+    on the CPU alone)."""
+    return max(1e-6, 1e-4 * float(ref.abs().max()))
+
+
+def train_against_cpu(arch, device):
+    """One smoke train step on the card against the CPU, from identical
+    params and batch (TRAIN_CHECK_BS): the loss; the grads within rtol
+    1e-4 and ``grad_atol`` (the elements beyond the CPU tests' elementwise
+    rtol 1e-4 / atol 1e-6 are counted and printed); AdamW on the card
+    from the CPU's grads within 1e-6 of AdamW on the CPU (the optimizer
+    alone: Adam's first step is lr·g / (|g| + eps), so comparing the
+    updated params of two steps would magnify grads near eps); and the
+    card's ``train_step`` finite with the same CE."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import model as lm
+    from repro_torch.train.data import synthetic_batches
+    from repro_torch.train.optim import (OptimConfig, adamw_update,
+                                         init_opt_state)
+    from repro_torch.train.train_step import train_step, value_and_grad
+
+    cfg = smoke_variant(get_config(arch))
+    cpu = torch.device("cpu")
+    host = lm.init_model(cfg, torch.Generator().manual_seed(SEED), cpu)
+    params = lm.tree_map(lambda t: t.to(device), host)
+    hbatch = next(synthetic_batches(cfg, *TRAIN_CHECK_BS, seed=SEED,
+                                    device=cpu))
+    batch = {k: v.to(device) for k, v in hbatch.items()}
+    (_, m), grads = value_and_grad(cfg, params, batch)
+    (_, hm), hgrads = value_and_grad(cfg, host, hbatch)
+    pairs = [(g.cpu(), h) for g, h in zip(lm.tree_leaves(grads),
+                                          lm.tree_leaves(hgrads))]
+    gerr = max(float((g - h).abs().max()) for g, h in pairs)
+    beyond = sum(int(((g - h).abs() > 1e-6 + 1e-4 * h.abs()).sum())
+                 for g, h in pairs)
+    for g, h in pairs:
+        torch.testing.assert_close(g, h, rtol=1e-4, atol=grad_atol(h),
+                                   msg=lambda msg: f"{arch} grads: {msg}")
+    oc = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    p1 = adamw_update(oc, params, lm.tree_map(lambda h: h.to(device), hgrads),
+                      init_opt_state(params))[0]
+    h1 = adamw_update(oc, host, hgrads, init_opt_state(host))[0]
+    perr = max(float((a.cpu() - h).abs().max())
+               for a, h in zip(lm.tree_leaves(p1), lm.tree_leaves(h1)))
+    p2, _, m2 = train_step(cfg, oc, params, init_opt_state(params), batch)
+    finite = all(bool(torch.isfinite(t).all()) for t in lm.tree_leaves(p2))
+    print("train_vs_cpu,arch,ce_card,ce_cpu,max_abs_dgrad,"
+          "grads_beyond_cpu_test_tol,grads,max_abs_dparam_adamw,"
+          "step_ce_card,step_params_finite")
+    print(f"train_vs_cpu,{arch}-smoke,{float(m['ce'])},{float(hm['ce'])},"
+          f"{gerr},{beyond},{sum(h.numel() for _, h in pairs)},{perr},"
+          f"{float(m2['ce'])},{finite}")
+    if not (perr <= 1e-6 and finite
+            and abs(float(m["ce"]) - float(hm["ce"])) <= 1e-5 * float(hm["ce"])
+            and abs(float(m2["ce"]) - float(m["ce"])) <= 1e-6 * float(m["ce"])):
+        raise AssertionError(f"{arch}: the card's train step disagrees with "
+                             "the CPU's")
+
+
+def train_phase(device):
+    """Training on the card: ``repro_torch.launch.train --arch olmo-1b``
+    at full width and depth (TRAIN_STEPS steps at TRAIN_B x TRAIN_S, fp32)
+    with each step timed, CE falling, s a step over steps 2 to the last,
+    tokens/s, peak memory and the model-FLOP rate against the fp32 peak;
+    then smoke train steps on the card against the CPU (olmo-1b,
+    xlstm-1.3b), ``train_step_accum`` with two micro-batches against the
+    full batch, a checkpoint saved and loaded bit for bit, and
+    ``train_step(use_kernel=True)`` refused (K4 has no backward). Returns
+    the K4 and K5 launches of the launcher's run."""
+    import shutil
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.launch import train
+    from repro_torch.models import model as lm
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.data import synthetic_batches
+    from repro_torch.train.optim import OptimConfig, init_opt_state
+    from repro_torch.train.train_step import train_step, train_step_accum
+
+    cfg = get_config(TRAIN_ARCH).replace(dtype="float32")
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_train_steps() as walls:
+        history = train.main(["--arch", TRAIN_ARCH, "--steps",
+                              str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+                              "--seq", str(TRAIN_S), "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    launches = {**fa.launch_counts(), **ssd.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    if any(launches.values()):
+        raise AssertionError(f"training launched {launches}: it runs the "
+                             "plain path")
+    if not history[-1]["ce"] < history[0]["ce"]:
+        raise AssertionError(f"CE did not fall: {history}")
+    steady = walls[1:]
+    s_step = sum(steady) / len(steady)
+    flop = train_flop(cfg, TRAIN_B, TRAIN_S)
+    print("train,arch,B,S,steps,first_step_s,s_per_step,min_step_s,"
+          "max_step_s,tokens_per_s,peak_bytes,model_tflop_per_step,"
+          "model_tflop_per_s,share_of_fp32_peak,ce_first,ce_last")
+    print(f"train,{TRAIN_ARCH},{TRAIN_B},{TRAIN_S},{len(walls)},{walls[0]},"
+          f"{s_step},{min(steady)},{max(steady)},"
+          f"{TRAIN_B * TRAIN_S / s_step},{peak},{flop / 1e12},"
+          f"{flop / s_step / 1e12},{flop / s_step / PEAK_FLOPS[torch.float32]},"
+          f"{history[0]['ce']},{history[-1]['ce']}")
+
+    for arch in ("olmo-1b", "xlstm-1.3b"):
+        train_against_cpu(arch, device)
+
+    small = smoke_variant(get_config("olmo-1b"))
+    params = lm.init_model(small, torch.Generator(device).manual_seed(SEED),
+                           device)
+    batch = next(synthetic_batches(small, 4, 64, seed=SEED, device=device))
+    oc = OptimConfig(lr=1e-3, warmup_steps=0, total_steps=10, clip_norm=1e9)
+    opt = init_opt_state(params)
+    p_full, _, m_full = train_step(small, oc, params, opt, batch)
+    p_acc, o_acc, m_acc = train_step_accum(small, oc, params, opt, batch,
+                                           n_micro=2)
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(lm.tree_leaves(p_full), lm.tree_leaves(p_acc)))
+    print(f"train_accum,olmo-1b-smoke,n_micro,2,max_abs_dparam,{diff},tol,"
+          f"{ACCUM_TOL},ce_full,{float(m_full['ce'])},ce_accum,"
+          f"{float(m_acc['ce'])}")
+    if not diff < ACCUM_TOL:
+        raise AssertionError(f"accumulation differs from the full batch by "
+                             f"{diff}")
+
+    ckpt_dir = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+    path = os.path.join(ckpt_dir, "ckpt.npz")
+    try:
+        save_checkpoint(path, p_acc, o_acc, step=1, meta={"arch": small.name})
+        zeros = lm.tree_map(torch.zeros_like, p_acc)
+        p2, o2, meta = load_checkpoint(path, zeros,
+                                       lm.tree_map(torch.zeros_like, o_acc))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    same_bits = all(
+        a.device == b.device and torch.equal(a, b) for a, b in
+        zip(lm.tree_leaves([p_acc, o_acc]), lm.tree_leaves([p2, o2])))
+    print(f"checkpoint,olmo-1b-smoke,round_trip_bit_identical,{same_bits},"
+          f"meta,{meta}")
+    if not same_bits or meta["step"] != 1:
+        raise AssertionError("the checkpoint did not round-trip on the card")
+
+    try:
+        train_step(small, oc, params, opt, batch, use_kernel=True)
+    except RuntimeError as e:
+        print(f"# train_step(use_kernel=True) on the card refused: {e}")
+    else:
+        raise AssertionError("train_step(use_kernel=True) on the card ran: "
+                             "K4's output would cut the gradient")
+    return launches
+
+
 def singlepass_path(kernel, device):
     """The single-pass baseline's path: the bench's single-pass section
     at SINGLEPASS_CELL. Returns the K3 launches it made."""
@@ -1807,6 +2179,15 @@ def main() -> int:
     t0 = time.perf_counter()
     served.update(moe_phase(device))
     phase_s["moe"] = time.perf_counter() - t0
+    # The xLSTM prefill and the training run are main paths with no
+    # kernel on them: their counts are set to 0 before and must read 0.
+    t0 = time.perf_counter()
+    no_kernel = {XLSTM: xlstm_phase(device)}
+    phase_s["xlstm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    no_kernel[f"train {TRAIN_ARCH}"] = train_phase(device)
+    phase_s["training"] = time.perf_counter() - t0
+    print("# K4/K5 launches on the paths without a kernel: %s" % no_kernel)
     t0 = time.perf_counter()
     baseline = "fitmask_multibox_singlepass_baseline"
     by_path[baseline] = {"fitmask_bench": singlepass_path(kernel, device)}

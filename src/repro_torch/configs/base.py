@@ -54,8 +54,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 def get_config(name: str) -> ModelConfig:
     from . import registry  # noqa: F401  (populates _REGISTRY)
     if name not in _REGISTRY:
-        raise KeyError(f"arch '{name}' is not ported to repro_torch yet; "
-                       f"ported: {sorted(_REGISTRY)}")
+        raise KeyError(f"unknown arch '{name}'; the configurations are "
+                       f"{sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 

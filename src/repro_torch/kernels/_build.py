@@ -148,3 +148,16 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     loads and ``cp.async`` need: ``t`` itself where it is, else a copy."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise ``RuntimeError`` when grad mode is on and an input requires
+    grad: a kernel writes its output through a raw pointer, so the output
+    carries no autograd history and a backward would silently stop at
+    it. Training runs the plain path."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the CUDA {name} kernel has no backward, and an input requires "
+            "grad: run the plain path (use_kernel=False) to train, or call "
+            "it under torch.no_grad()")

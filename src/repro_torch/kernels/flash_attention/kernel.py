@@ -34,7 +34,8 @@ from typing import Optional
 
 import torch
 
-from .._build import Library, aligned, count_launch, load_once, stream_of
+from .._build import (Library, aligned, count_launch, load_once,
+                      refuse_autograd, stream_of)
 from . import ref
 
 SOURCE = "flash_attention.cu"          # in repro_torch/csrc
@@ -86,9 +87,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, S, H, D); k, v: (B, T, KH, D) with H % KH == 0. Returns
     (B, S, H, D) in q's type. Positions are ``arange``; ``window`` None
     or <= 0 means no window. Strided inputs are copied contiguous for
-    the kernel."""
+    the kernel. On the card it raises ``RuntimeError`` when grad mode is
+    on and an input requires grad (the kernel has no backward); the
+    plain version on the CPU is differentiable."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    refuse_autograd("flash_attention", q, k, v)
     q, k, v = (aligned(t) for t in (q, k, v))
     _check_args(q, k, v)
     b, s, h, d = q.shape

@@ -41,7 +41,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .._build import Library, aligned, count_launch, load_once, stream_of
+from .._build import (Library, aligned, count_launch, load_once,
+                      refuse_autograd, stream_of)
 from . import ref
 
 SOURCE = "ssd_scan.cu"                 # in repro_torch/csrc
@@ -124,9 +125,13 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     x: (B,S,H,P); dt: (B,S,H); a: (H,); b,c: (B,S,G,N) with H % G == 0
     (G == H: per head); d_skip: (H,) or None; S % chunk == 0. Returns y
     (B,S,H,P) in x's type and the final state (B,H,P,N) in fp32.
-    Strided inputs are copied contiguous for the kernel."""
+    Strided inputs are copied contiguous for the kernel. On the card it
+    raises ``RuntimeError`` when grad mode is on and an input requires
+    grad (the kernel has no backward); the plain version on the CPU is
+    differentiable."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, a, b, c, chunk=chunk, d_skip=d_skip)
+    refuse_autograd("ssd_scan", x, dt, a, b, c, d_skip)
     x, b, c = (aligned(t) for t in (x, b, c))
     dt, a = dt.contiguous(), a.contiguous()
     if d_skip is not None:

@@ -196,7 +196,7 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
     elif cfg.pos_type not in ("none", "sinusoidal"):
-        raise ValueError(f"pos_type {cfg.pos_type!r} is not ported yet")
+        raise ValueError(f"unknown pos_type {cfg.pos_type!r}")
 
     if cache is None:
         out = _flash_or_ref(cfg, q, k, v, pos1, pos1, window, use_flash)

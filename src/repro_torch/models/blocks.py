@@ -2,14 +2,13 @@
 init_layer_state) interface so model.py can loop over stacked layer
 params regardless of family.
 
-Kinds ported so far:
+Kinds:
   dense        — norm -> attention (GQA) -> norm -> gated FFN
   shared_attn  — the same block, shared by the groups of a hybrid stack
   moe          — norm -> attention (GQA or MLA) -> norm -> MoE FFN
   moe_dense    — the same with a gated FFN (DeepSeek's first-k-dense)
   mamba        — norm -> Mamba2 mixer
-The mlstm and slstm kinds of ``repro.models.blocks`` come with their
-family; asking for one raises ``ValueError``.
+  mlstm/slstm  — norm -> xLSTM mixer
 """
 from __future__ import annotations
 
@@ -22,6 +21,8 @@ from .attention import (attention_forward, init_attention, init_kv_cache,
 from .common import ModelConfig, Params, apply_norm, init_norm
 from .ffn import ffn_forward, init_ffn, init_moe, moe_forward
 from .ssm import init_mamba2, init_mamba_state, mamba2_forward
+from .xlstm import (init_mlstm, init_mlstm_state, init_slstm,
+                    init_slstm_state, mlstm_forward, slstm_forward)
 
 
 def init_layer(cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -46,6 +47,12 @@ def init_layer(cfg: ModelConfig, generator: Optional[torch.Generator],
     if kind == "mamba":
         return {"ln1": init_norm(cfg, device),
                 "mixer": init_mamba2(cfg, generator, device)}
+    if kind == "mlstm":
+        return {"ln1": init_norm(cfg, device),
+                "mixer": init_mlstm(cfg, generator, device)}
+    if kind == "slstm":
+        return {"ln1": init_norm(cfg, device),
+                "mixer": init_slstm(cfg, generator, device)}
     raise ValueError(kind)
 
 
@@ -62,6 +69,10 @@ def init_layer_state(cfg: ModelConfig, kind: str, batch: int, window: int,
                              dtype, device)
     if kind == "mamba":
         return init_mamba_state(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        return init_mlstm_state(cfg, batch, device)
+    if kind == "slstm":
+        return init_slstm_state(cfg, batch, device)
     raise ValueError(kind)
 
 
@@ -92,5 +103,13 @@ def apply_layer(cfg: ModelConfig, p: Params, x: torch.Tensor,
         h = apply_norm(cfg, p["ln1"], x)
         out, new_state = mamba2_forward(cfg, p["mixer"], h, state=state,
                                         use_kernel=use_kernel)
+        return x + out, new_state, aux
+    if kind == "mlstm":
+        h = apply_norm(cfg, p["ln1"], x)
+        out, new_state = mlstm_forward(cfg, p["mixer"], h, state=state)
+        return x + out, new_state, aux
+    if kind == "slstm":
+        h = apply_norm(cfg, p["ln1"], x)
+        out, new_state = slstm_forward(cfg, p["mixer"], h, state=state)
         return x + out, new_state, aux
     raise ValueError(kind)

@@ -10,6 +10,7 @@ over *groups*:
   dense/audio/vlm : n_layers x dense (stacked)
   moe             : first_k_dense moe_dense layers (a list), then the
                     rest as moe layers (stacked)
+  ssm (xlstm)     : G x [slstm ; (k-1) x mlstm] (stacked), k = slstm_every
   hybrid (zamba2) : G x [shared_attn ; k x mamba] (stacked) + leftover
                     mamba layers (a list); the attention block params are
                     SHARED, applied once at the start of each group.
@@ -23,8 +24,9 @@ stub ``embeds`` input in place of tokens.
 
 ``repro``'s ``remat`` (rematerialisation under ``jax.checkpoint``) and
 ``force_unscanned`` (unrolled layers for XLA cost analysis) do not apply
-to an eager forward without autograd: the fields stay in the config and
-are ignored here. The ssm (xLSTM) family comes with its blocks.
+to the port's eager forward: the fields stay in the config and are
+ignored here, training included (it keeps every activation for
+autograd).
 """
 from __future__ import annotations
 
@@ -44,12 +46,16 @@ from .common import (ModelConfig, Params, apply_norm, embed_init, init_norm,
 # Trees of tensors
 # ----------------------------------------------------------------------
 
-def tree_map(fn: Callable, tree):
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` of each leaf of ``tree`` and the leaves at the same place
+    in ``rest``, trees of the same structure."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def tree_stack(trees: List):
@@ -67,6 +73,13 @@ def tree_leaves(tree) -> List:
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_unflatten(tree, leaves: List):
+    """A tree of ``tree``'s structure holding ``leaves`` in
+    ``tree_leaves``'s order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 def stacked_init(fn: Callable[[], Any], count: int):
@@ -103,6 +116,10 @@ class Segment:
     group: Tuple[str, ...] = ()   # for grouped segments: kinds within group
 
 
+# segments whose layers are groups of kinds (Segment.group)
+GROUPED = ("xlstm_group", "hybrid_group")
+
+
 def layer_plan(cfg: ModelConfig) -> List[Segment]:
     at = cfg.arch_type
     if at in ("dense", "audio", "vlm"):
@@ -113,6 +130,13 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
             segs.append(Segment("moe_dense", cfg.first_k_dense, False))
         segs.append(Segment("moe", cfg.n_layers - cfg.first_k_dense, True))
         return segs
+    if at == "ssm":    # xLSTM
+        k = cfg.slstm_every
+        if cfg.n_layers % k:
+            raise ValueError(f"n_layers {cfg.n_layers} is not a multiple "
+                             f"of slstm_every {k}")
+        group = ("slstm",) + ("mlstm",) * (k - 1)
+        return [Segment("xlstm_group", cfg.n_layers // k, True, group)]
     if at == "hybrid":  # zamba2
         k = cfg.shared_attn_every
         g, rem = divmod(cfg.n_layers, k)
@@ -120,8 +144,7 @@ def layer_plan(cfg: ModelConfig) -> List[Segment]:
         if rem:
             segs.append(Segment("mamba", rem, False))
         return segs
-    raise ValueError(f"arch type {at!r} is not ported yet; repro_torch has "
-                     "the dense (with audio and vlm), moe and hybrid stacks")
+    raise ValueError(f"unknown arch type {at!r}")
 
 
 # ----------------------------------------------------------------------
@@ -146,7 +169,7 @@ def init_model(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
     seg_params = []
     for seg in layer_plan(cfg):
-        if seg.kind == "hybrid_group":
+        if seg.kind in GROUPED:
             def one(seg=seg):
                 return {f"{i}_{kind}": init_layer(cfg, generator, device, kind)
                         for i, kind in enumerate(seg.group)}
@@ -291,7 +314,7 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
             st = None
             if st_seg is not None:
                 st = tree_index(st_seg, li) if seg.scanned else st_seg[li]
-            if seg.kind == "hybrid_group":
+            if seg.kind in GROUPED:
                 x, ns, a = _apply_group(cfg, seg.group, lp, x, positions, st,
                                         window, use_kernel,
                                         shared_attn=shared_for_seg)
@@ -336,9 +359,11 @@ def init_decode_state(cfg: ModelConfig, batch: int, window: int,
 
     states: List[Any] = []
     for seg in layer_plan(cfg):
-        if seg.kind == "hybrid_group":
+        if seg.kind in GROUPED:
             def gstate(seg=seg):
-                g: Dict[str, Any] = {"shared": one("shared_attn")}
+                g: Dict[str, Any] = {}
+                if seg.kind == "hybrid_group":
+                    g["shared"] = one("shared_attn")
                 for i, kind in enumerate(seg.group):
                     g[f"{i}_{kind}"] = one(kind)
                 return g

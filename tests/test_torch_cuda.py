@@ -1,9 +1,10 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
 against their plain PyTorch versions on the card, the placement loop
 the chaos scenarios and the allocator daemon through the ``cuda``
-engine against the host ``numpy`` engine, and the smoke models'
+engine against the host ``numpy`` engine, the smoke models'
 forwards (zamba2, the dense-stack and MoE families) through the kernels
-against their plain paths.
+against their plain paths, the xlstm smoke model and one smoke train
+step on the card against the CPU, and K4 and K5 refusing autograd.
 Every test is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor ``repro``, so it also runs where only the
 port's requirements are installed:
@@ -842,3 +843,117 @@ def test_init_model_holds_one_layer_beside_the_stack_on_card(card):
                 for t in tlm.tree_leaves(params["segments"][0]))
     assert peak <= total + 2 * layer, (peak, total, layer)
     assert 2 * layer < total - 2 * layer   # the bound tells the two apart
+
+
+# -- xLSTM and training ------------------------------------------------------
+
+def test_kernels_refuse_autograd_on_card(card):
+    """K4 and K5 write their outputs through raw pointers, so the outputs
+    carry no autograd history: with grad mode on and an input requiring
+    grad each raises instead of cutting the gradient; under no_grad, or
+    with no input requiring grad, each launches. train_step with
+    use_kernel=True on the card therefore raises."""
+    from repro_torch.train.data import synthetic_batches
+    from repro_torch.train.optim import OptimConfig, init_opt_state
+    from repro_torch.train.train_step import train_step
+
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, 64, 4, 64)).astype(
+        np.float32)).to(card) for _ in range(3))
+    x = torch.from_numpy(rng.normal(size=(1, 64, 2, 32)).astype(
+        np.float32)).to(card)
+    dt = torch.full((1, 64, 2), 0.1, device=card)
+    a = -torch.ones(2, device=card)
+    bc = torch.from_numpy(rng.normal(size=(1, 64, 1, 16)).astype(
+        np.float32)).to(card)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfa.flash_attention(q.requires_grad_(), k, v)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tssd.ssd_scan(x.requires_grad_(), dt, a, bc, bc, chunk=16)
+    tfa.reset_launch_counts()
+    tssd.reset_launch_counts()
+    with torch.no_grad():
+        tfa.flash_attention(q, k, v)
+        tssd.ssd_scan(x, dt, a, bc, bc, chunk=16)
+    torch.cuda.synchronize()
+    assert tfa.launch_counts() == {"flash_attention": 1}
+    assert tssd.launch_counts() == {"ssd_scan": 1}
+
+    cfg = smoke_variant(get_config("olmo-1b"))
+    params = tlm.init_model(cfg, torch.Generator(card).manual_seed(0), card)
+    batch = next(synthetic_batches(cfg, 2, 16, seed=0, device=card))
+    oc = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    with pytest.raises(RuntimeError, match="no backward"):
+        train_step(cfg, oc, params, init_opt_state(params), batch,
+                   use_kernel=True)
+
+
+def test_xlstm_smoke_forward_and_decode_on_card_match_cpu(card):
+    """The same parameters on the card and on the CPU: the forward (the
+    sLSTM loop, the mLSTM parallel form) and six decode steps from
+    m = -inf, with no NaN, and decode against the forward."""
+    from repro_torch.serve import engine
+
+    cfg = smoke_variant(get_config("xlstm-1.3b"), n_layers=4)
+    host = tlm.init_model(cfg, torch.Generator().manual_seed(0),
+                          torch.device("cpu"))
+    params = tlm.tree_map(lambda t: t.to(card), host)
+    b, s = 2, 6
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (b, 32)))
+    want, _ = tlm.forward(cfg, host, {"tokens": toks})
+    got, _ = tlm.forward(cfg, params, {"tokens": toks.to(card)},
+                         use_kernel=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    state = engine.init_state(cfg, b, window=s, device=card)
+    hstate = engine.init_state(cfg, b, window=s, device=torch.device("cpu"))
+    for t in range(s):
+        pos = torch.full((b, 1), t, dtype=torch.int32)
+        lg, state = engine.serve_step(cfg, params, state,
+                                      {"tokens": toks[:, t:t + 1].to(card),
+                                       "positions": pos.to(card)})
+        hl, hstate = engine.serve_step(cfg, host, hstate,
+                                       {"tokens": toks[:, t:t + 1],
+                                        "positions": pos})
+        torch.testing.assert_close(lg.cpu(), hl, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(lg[:, 0].cpu(), want[:, t], rtol=2e-3,
+                                   atol=2e-3)
+    for a, h in zip(tlm.tree_leaves(state), tlm.tree_leaves(hstate)):
+        assert not torch.isnan(a).any()
+        torch.testing.assert_close(a.cpu(), h, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "xlstm-1.3b"])
+def test_smoke_train_step_on_card_matches_cpu(card, arch):
+    """One train step from the same params and batch on the card and on
+    the CPU: the loss; the grads within rtol 1e-4 and 1e-4 of each
+    leaf's largest grad (at least 1e-6: another order of fp32 sums moves
+    the xLSTM's grads by more than an elementwise 1e-6); AdamW from the
+    same grads within 1e-6; the card's step finite."""
+    from repro_torch.train.data import synthetic_batches
+    from repro_torch.train.optim import (OptimConfig, adamw_update,
+                                         init_opt_state)
+    from repro_torch.train.train_step import train_step, value_and_grad
+
+    cfg = smoke_variant(get_config(arch))
+    cpu = torch.device("cpu")
+    host = tlm.init_model(cfg, torch.Generator().manual_seed(0), cpu)
+    params = tlm.tree_map(lambda t: t.to(card), host)
+    hbatch = next(synthetic_batches(cfg, 2, 16, seed=0, device=cpu))
+    batch = {k: v.to(card) for k, v in hbatch.items()}
+    (_, m), grads = value_and_grad(cfg, params, batch)
+    (_, hm), hgrads = value_and_grad(cfg, host, hbatch)
+    assert float(m["ce"]) == pytest.approx(float(hm["ce"]), rel=1e-5)
+    for g, h in zip(tlm.tree_leaves(grads), tlm.tree_leaves(hgrads)):
+        atol = max(1e-6, 1e-4 * float(h.abs().max()))
+        torch.testing.assert_close(g.cpu(), h, rtol=1e-4, atol=atol)
+    oc = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    p1 = adamw_update(oc, params, tlm.tree_map(lambda h: h.to(card), hgrads),
+                      init_opt_state(params))[0]
+    h1 = adamw_update(oc, host, hgrads, init_opt_state(host))[0]
+    for a, h in zip(tlm.tree_leaves(p1), tlm.tree_leaves(h1)):
+        torch.testing.assert_close(a.cpu(), h, rtol=1e-6, atol=1e-6)
+    p2, o2, m2 = train_step(cfg, oc, params, init_opt_state(params), batch)
+    assert all(bool(torch.isfinite(t).all()) for t in tlm.tree_leaves(p2))
+    assert int(o2["step"]) == 1
+    assert float(m2["ce"]) == pytest.approx(float(m["ce"]), rel=1e-6)

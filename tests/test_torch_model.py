@@ -86,11 +86,14 @@ def test_configs_match_repro(over):
 
 
 def test_unported_arch_raises_key_error():
-    jget_config("xlstm-1.3b")   # exists in repro
+    """Every arch of repro is ported: a name in neither registry raises
+    KeyError listing the known ones, an unknown arch type ValueError."""
+    with pytest.raises(KeyError):
+        jget_config("no-such-arch")
     with pytest.raises(KeyError, match="zamba2-1.2b"):
-        get_config("xlstm-1.3b")
-    with pytest.raises(ValueError, match="not ported"):
-        tlm.layer_plan(get_config("zamba2-1.2b").replace(arch_type="ssm"))
+        get_config("no-such-arch")
+    with pytest.raises(ValueError, match="unknown arch type"):
+        tlm.layer_plan(get_config("zamba2-1.2b").replace(arch_type="rnn"))
 
 
 @pytest.mark.parametrize("use_flash", [False, True])

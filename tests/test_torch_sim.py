@@ -126,8 +126,9 @@ def test_reused_job_list_keeps_its_first_start_as_the_reference_does():
 def test_port_imports_no_jax_and_nothing_of_repro():
     """Import every module of the port, its benches and chip_smoke in a
     fresh process, the chaos layer, the service, its benchmarks,
-    ``repro_torch.api`` and every config module of the registry by
-    name, and load each ``examples_torch`` script
+    ``repro_torch.api``, the training modules and launcher, and every
+    config module of the registry by name, and load each
+    ``examples_torch`` script
     by path (not as ``__main__``); neither JAX nor any ``repro`` module
     may be loaded."""
     code = """
@@ -141,12 +142,15 @@ import repro_torch.sim.scenarios
 import repro_torch.api, repro_torch.serve.scheduler
 import benchmarks_torch.crash_loop, benchmarks_torch.failover_drill
 import benchmarks_torch.service_bench
+import repro_torch.train.optim, repro_torch.train.data
+import repro_torch.train.checkpoint, repro_torch.train.train_step
+import repro_torch.launch.train, repro_torch.models.xlstm
 import repro_torch.configs.registry as reg
 for mod in ("llama3_8b", "phi4_mini_3_8b", "qwen1_5_110b", "olmo_1b",
             "qwen2_vl_7b", "musicgen_medium", "zamba2_1_2b",
-            "deepseek_v2_236b", "llama4_scout_17b_a16e"):
+            "deepseek_v2_236b", "llama4_scout_17b_a16e", "xlstm_1_3b"):
     assert "repro_torch.configs." + mod in sys.modules, mod
-assert len(reg.ARCH_IDS) == 9, reg.ARCH_IDS
+assert len(reg.ARCH_IDS) == 10, reg.ARCH_IDS
 examples = sorted(glob.glob(os.path.join("examples_torch", "*.py")))
 assert len(examples) >= 2, examples
 for path in examples:
