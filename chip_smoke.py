@@ -141,16 +141,38 @@
    ``train_step_accum`` with two micro-batches against the full batch,
    a checkpoint saved and loaded on the card bit for bit, and
    ``train_step(use_kernel=True)`` refused (K4 has no backward).
-14. The single-pass baseline's path: ``benchmarks_torch/fitmask_bench.py``'s
+14. Mesh training phase: the same ``launch.train`` run with ``--mesh
+   1x1`` (a process group of one rank that the launcher starts, NCCL;
+   params and batches as DTensors; 0 K4 launches): its CE history
+   within 1e-5 relative of the unmeshed run's, s a step, tokens/s and
+   peak memory printed beside the unmeshed run's.
+15. Cluster phase (a main path of K1, K2 and K3): ``RFoldCluster(64,
+   cube_n=2)`` on the ``cuda`` engine places the reference's five archs
+   as 1-XPU jobs, all five held at once, and each trains 3 smoke steps
+   on its 1x1 mesh on the card; the placements equal a ``numpy``-engine
+   cluster's and the losses the same steps' on the CPU (1e-4 relative);
+   utilization returns to 0; K2 and K1 + K3 launched. Then ``python -m
+   repro_torch.launch.cluster --jobs 5 --steps 3`` exits 0 (on one card
+   every job is larger than the group: the reference's "skipped" lines).
+16. Dry-run phase, on the host (a fake process group of 256 ranks,
+   tensors without storage; the card's memory must not grow):
+   ``repro_torch.launch.dryrun`` for olmo-1b train_4k with probes and
+   zamba2-1.2b decode_32k without, and ``repro_torch.launch.perf`` for
+   olmo-1b train_4k (baseline, remat_full, no_fsdp): per-chip FLOPs > 0,
+   256 x them within 10 % of one rank's count of the same step, the
+   probes' extrapolation equal to the full-depth count, remat_full's
+   FLOPs 20-45 % above baseline's, no_fsdp's collective bytes below
+   baseline's.
+17. The single-pass baseline's path: ``benchmarks_torch/fitmask_bench.py``'s
    single-pass section at its headline cell (16^3, B 8, K 4).
-15. Prints one JSON line per the kernel table (K4's launches by served
+18. Prints one JSON line per the kernel table (K4's launches by served
    model), then the result line.
 
 Launch counters are set to 0 just before each main path (placement,
 fleet, each run of the scenario path, service, each model's kernel-path
-prefill, the training run, the bench's single-pass section) and read
-just after; every kernel must have been launched on a path, and none on
-the xLSTM prefill or the training run.
+prefill, the training runs, the cluster, the bench's single-pass
+section) and read just after; every kernel must have been launched on a
+path, and none on the xLSTM prefill or the training runs.
 
 Any failure raises and exits non-zero. With no CUDA device, or without
 the repository's ``src/repro_torch`` beside it, it exits non-zero and
@@ -285,6 +307,16 @@ TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S = "olmo-1b", 10, 2, 2048
 ACCUM_TOL = 5e-4
 # Card-against-CPU train steps at the CPU tests' size (B 2 x S 16).
 TRAIN_CHECK_BS = (2, 16)
+# The mesh training run: the unmeshed run's CE within this share.
+MESH_CE_REL = 1e-5
+# The cluster phase: RFold on 64 XPUs in 2^3 cubes, 1-XPU jobs of the
+# reference's five archs (src/repro/launch/cluster.py:111-117), smoke
+# steps on the card against the CPU within this share.
+CLUSTER_XPUS, CLUSTER_CUBE, CLUSTER_STEPS, CLUSTER_REL = 64, 2, 3, 1e-4
+# The dry-run phase: 256 x one rank's FLOPs within this share of the
+# unsharded count; remat_full's FLOPs this far above baseline's
+# (repro's hypothesis: about +1/3, src/repro/launch/perf.py:32-34).
+DRYRUN_RATIO_TOL, REMAT_RANGE = 0.10, (1.20, 1.45)
 # The single-pass baseline's cell: benchmarks_torch/fitmask_bench.py's
 # headline (16^3, B 8, K 4).
 SINGLEPASS_CELL = ((16, 16, 16), 8, 4)
@@ -2003,7 +2035,7 @@ def train_against_cpu(arch, device):
                              "the CPU's")
 
 
-def train_phase(device):
+def train_phase(device, record=None):
     """Training on the card: ``repro_torch.launch.train --arch olmo-1b``
     at full width and depth (TRAIN_STEPS steps at TRAIN_B x TRAIN_S, fp32)
     with each step timed, CE falling, s a step over steps 2 to the last,
@@ -2012,7 +2044,8 @@ def train_phase(device):
     xlstm-1.3b), ``train_step_accum`` with two micro-batches against the
     full batch, a checkpoint saved and loaded bit for bit, and
     ``train_step(use_kernel=True)`` refused (K4 has no backward). Returns
-    the K4 and K5 launches of the launcher's run."""
+    the K4 and K5 launches of the launcher's run; ``record`` (a dict)
+    gets its history, s a step, tokens/s and peak."""
     import shutil
 
     from repro_torch.configs import get_config, smoke_variant
@@ -2054,6 +2087,9 @@ def train_phase(device):
           f"{TRAIN_B * TRAIN_S / s_step},{peak},{flop / 1e12},"
           f"{flop / s_step / 1e12},{flop / s_step / PEAK_FLOPS[torch.float32]},"
           f"{history[0]['ce']},{history[-1]['ce']}")
+    if record is not None:
+        record.update(history=history, s_step=s_step, peak=peak,
+                      tokens_per_s=TRAIN_B * TRAIN_S / s_step)
 
     for arch in ("olmo-1b", "xlstm-1.3b"):
         train_against_cpu(arch, device)
@@ -2101,6 +2137,212 @@ def train_phase(device):
         raise AssertionError("train_step(use_kernel=True) on the card ran: "
                              "K4's output would cut the gradient")
     return launches
+
+
+def mesh_train_phase(device, unmeshed):
+    """``launch.train`` as in the training phase with ``--mesh 1x1``: the
+    launcher starts a process group of one rank (NCCL) and trains on
+    DTensors. Its CE history against the unmeshed run's (``unmeshed``,
+    the training phase's record), s a step, tokens/s and peak beside it.
+    Returns the K4 and K5 launches of the run."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+    from repro_torch.launch import train
+
+    fa.reset_launch_counts()
+    ssd.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with timed_train_steps() as walls:
+        history = train.main(["--arch", TRAIN_ARCH, "--steps",
+                              str(TRAIN_STEPS), "--batch", str(TRAIN_B),
+                              "--seq", str(TRAIN_S), "--seed", str(SEED),
+                              "--mesh", "1x1"])
+    torch.cuda.synchronize()
+    launches = {**fa.launch_counts(), **ssd.launch_counts()}
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    if dist.is_initialized():
+        raise AssertionError("launch.train left its process group up")
+    if any(launches.values()):
+        raise AssertionError(f"the mesh run launched {launches}")
+    rel = max(abs(a["ce"] - b["ce"]) / abs(b["ce"])
+              for a, b in zip(history, unmeshed["history"]))
+    steady = walls[1:]
+    s_step = sum(steady) / len(steady)
+    print("train_mesh,arch,mesh,steps,first_step_s,s_per_step,min_step_s,"
+          "max_step_s,tokens_per_s,peak_bytes,unmeshed_s_per_step,"
+          "unmeshed_tokens_per_s,unmeshed_peak_bytes,step_time_ratio,"
+          "max_rel_dce,ce_first,ce_last")
+    print(f"train_mesh,{TRAIN_ARCH},1x1,{len(walls)},{walls[0]},{s_step},"
+          f"{min(steady)},{max(steady)},{TRAIN_B * TRAIN_S / s_step},{peak},"
+          f"{unmeshed['s_step']},{unmeshed['tokens_per_s']},"
+          f"{unmeshed['peak']},{s_step / unmeshed['s_step']},{rel},"
+          f"{history[0]['ce']},{history[-1]['ce']}")
+    if [h["step"] for h in history] != \
+            [h["step"] for h in unmeshed["history"]] or rel > MESH_CE_REL:
+        raise AssertionError(f"the mesh run's CE moved by {rel} from the "
+                             "unmeshed run's")
+    return launches
+
+
+def cluster_phase(kernel, device):
+    """The RFold cluster on the card (see the module docstring, item 15).
+    Returns the fitmask kernels' launches of the card cluster's run."""
+    import torch.distributed as dist
+
+    from repro_torch.core.engineconfig import EngineConfig
+    from repro_torch.core.geometry import JobShape
+    from repro_torch.launch import cluster as cl
+    from repro_torch.launch.mesh import ensure_process_group
+
+    t0 = time.perf_counter()
+    created = ensure_process_group(device)
+    try:
+        kernel.reset_launch_counts()
+        card = cl.RFoldCluster(CLUSTER_XPUS, CLUSTER_CUBE,
+                               engine=EngineConfig("cuda", device=device),
+                               device=device)
+        host = cl.RFoldCluster(CLUSTER_XPUS, CLUSTER_CUBE, engine="numpy",
+                               device="cpu")
+        one = JobShape((1, 1, 1))
+        for jid, (arch, _) in enumerate(cl.SUBMISSIONS):
+            got = card.submit(jid, arch, one, seed=jid)
+            want = host.submit(jid, arch, one, seed=jid)
+            if got is None or want is None or \
+                    got["placement"] != want["placement"]:
+                raise AssertionError(f"job {jid} ({arch}): placed "
+                                     f"{got and got['placement']} on cuda, "
+                                     f"{want and want['placement']} on numpy")
+        held = card.utilization()
+        if held != host.utilization() or held != len(cl.SUBMISSIONS) \
+                / CLUSTER_XPUS:
+            raise AssertionError(f"utilization {held} with all jobs held")
+        worst = 0.0
+        for jid, (arch, _) in enumerate(cl.SUBMISSIONS):
+            lc = card.run_steps(jid, CLUSTER_STEPS)
+            lh = host.run_steps(jid, CLUSTER_STEPS)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+            worst = max(worst, rel)
+            print(f"cluster_job,{jid},{arch},"
+                  f"{json.dumps(card.jobs[jid]['placement'])},"
+                  f"losses_card,{lc},losses_cpu,{lh},max_rel,{rel}")
+            if len(lc) != CLUSTER_STEPS or rel > CLUSTER_REL:
+                raise AssertionError(f"{arch}: card losses {lc} against "
+                                     f"the CPU's {lh}")
+        torch.cuda.synchronize()
+        counts = kernel.launch_counts()
+        for jid in range(len(cl.SUBMISSIONS)):
+            card.finish(jid)
+            host.finish(jid)
+        if card.utilization() != 0.0 or host.utilization() != 0.0:
+            raise AssertionError("utilization after finish: "
+                                 f"{card.utilization()}")
+    finally:
+        if created:
+            dist.destroy_process_group()
+    k13 = counts["fitmask_multibox"] + counts["fitmask_batched"]
+    print("cluster,xpus,cube_n,jobs,steps,held_utilization,max_rel_dloss,"
+          "k2_launches,k1_k3_launches,s")
+    print(f"cluster,{CLUSTER_XPUS},{CLUSTER_CUBE},{len(cl.SUBMISSIONS)},"
+          f"{CLUSTER_STEPS},{held},{worst},{counts['occupancy_counts']},"
+          f"{k13},{time.perf_counter() - t0}")
+    if not (counts["occupancy_counts"] > 0 and k13 > 0):
+        raise AssertionError(f"the cluster's placements launched {counts}")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.cluster",
+                        "--jobs", "5", "--steps", "3"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    print(r.stdout.rstrip())
+    if r.returncode != 0:
+        raise AssertionError(f"launch.cluster exited {r.returncode}: "
+                             f"{r.stderr[-2000:]}")
+    return counts
+
+
+def dryrun_phase(device):
+    """The dry-run and perf harness on a fake process group (see the
+    module docstring, item 16). Host work only: the card's allocated
+    memory must not grow."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch import dryrun, perf
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    out = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    try:
+        t0 = time.perf_counter()
+        dryrun.main(["--arch", "olmo-1b", "--shape", "train_4k", "--mesh",
+                     "single", "--out", out])
+        t_olmo = time.perf_counter() - t0
+        with open(os.path.join(out, "olmo-1b__train_4k__single.json")) as f:
+            res = json.load(f)
+        t0 = time.perf_counter()
+        dryrun.main(["--arch", "zamba2-1.2b", "--shape", "decode_32k",
+                     "--mesh", "single", "--no-probe", "--out", out])
+        t_zamba = time.perf_counter() - t0
+        with open(os.path.join(out, "zamba2-1.2b__decode_32k__single.json")
+                  ) as f:
+            dec = json.load(f)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    one = dryrun.one_rank_cost(get_config("olmo-1b"), SHAPES["train_4k"],
+                               device=device)
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = {r["variant"]: r for r in perf.main(
+        ["--arch", "olmo-1b", "--shape", "train_4k", "--variants",
+         "baseline,remat_full,no_fsdp"])}
+    t_perf = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem1 = torch.cuda.memory_allocated()
+    ratio = res["chips"] * res["flops"] / one["flops"]
+    ex = res["probes"]["extrapolated"]
+    remat = rows["remat_full"]["flops_per_chip"] \
+        / rows["baseline"]["flops_per_chip"]
+    print("dryrun,arch,shape,chips,flops,bytes_accessed,collective_bytes,"
+          "collective_count,hlo_ops,argument_bytes,temp_bytes,"
+          "one_rank_flops,chips_x_flops_over_one_rank,extrapolated_flops,"
+          "trace_s")
+    for r, t in ((res, t_olmo), (dec, t_zamba)):
+        mem = r["memory_analysis"]
+        print(f"dryrun,{r['arch']},{r['shape']},{r['chips']},{r['flops']},"
+              f"{r['bytes_accessed']},{r['collectives']['total_bytes']},"
+              f"{r['collectives']['total_count']},{r['hlo_ops']},"
+              f"{mem['argument_size_in_bytes']},{mem['temp_size_in_bytes']},"
+              + (f"{one['flops']},{ratio},{ex['flops']},{t}" if r is res
+                 else f",,,{t}"))
+    print("collectives,olmo-1b,train_4k," + json.dumps(res["collectives"]))
+    print("perf,variant,flops_per_chip,bytes_per_chip,"
+          "collective_bytes_per_chip,t_compute_s,t_memory_s,"
+          "t_collective_s,dominant")
+    for v, r in rows.items():
+        print(f"perf,{v},{r['flops_per_chip']},{r['bytes_per_chip']},"
+              f"{r['collective_bytes_per_chip']},{r['t_compute_s']},"
+              f"{r['t_memory_s']},{r['t_collective_s']},{r['dominant']}")
+    print(f"dryrun_phase,remat_over_baseline,{remat},one_rank_s,{t_one},"
+          f"perf_s,{t_perf},card_bytes_before,{mem0},after,{mem1}")
+    if not (res["flops"] > 0 and dec["flops"] > 0):
+        raise AssertionError("a dry-run counted no FLOPs")
+    if abs(ratio - 1.0) > DRYRUN_RATIO_TOL:
+        raise AssertionError(f"256 x per-chip FLOPs / one rank's = {ratio}")
+    if ex["flops"] != res["flops"]:
+        raise AssertionError(f"the probes extrapolate to {ex['flops']}, "
+                             f"the full depth counts {res['flops']}")
+    if not REMAT_RANGE[0] <= remat <= REMAT_RANGE[1]:
+        raise AssertionError(f"remat_full / baseline FLOPs = {remat}")
+    if not rows["no_fsdp"]["collective_bytes_per_chip"] < \
+            rows["baseline"]["collective_bytes_per_chip"]:
+        raise AssertionError("no_fsdp moves no fewer collective bytes")
+    if mem1 > mem0:
+        raise AssertionError(f"the dry-run allocated {mem1 - mem0} bytes "
+                             "on the card")
 
 
 def singlepass_path(kernel, device):
@@ -2185,9 +2427,23 @@ def main() -> int:
     no_kernel = {XLSTM: xlstm_phase(device)}
     phase_s["xlstm"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    no_kernel[f"train {TRAIN_ARCH}"] = train_phase(device)
+    unmeshed = {}
+    no_kernel[f"train {TRAIN_ARCH}"] = train_phase(device, unmeshed)
     phase_s["training"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    no_kernel[f"train {TRAIN_ARCH} --mesh 1x1"] = mesh_train_phase(
+        device, unmeshed)
+    phase_s["mesh training"] = time.perf_counter() - t0
     print("# K4/K5 launches on the paths without a kernel: %s" % no_kernel)
+    t0 = time.perf_counter()
+    cluster = cluster_phase(kernel, device)
+    phase_s["cluster"] = time.perf_counter() - t0
+    for name in by_path:
+        by_path[name]["cluster"] = cluster[name]
+        launches[name] += cluster[name]
+    t0 = time.perf_counter()
+    dryrun_phase(device)
+    phase_s["dry-run"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     baseline = "fitmask_multibox_singlepass_baseline"
     by_path[baseline] = {"fitmask_bench": singlepass_path(kernel, device)}

@@ -18,8 +18,10 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.parallel.sharding import constrain, shard_map
 from .common import ModelConfig, Params, apply_mrope, apply_rope, dense_init
 
 NEG_INF = -1e30
@@ -111,6 +113,8 @@ def _cache_write(cache: Params, names: Tuple[str, ...], values,
     owned by one caller, and copying every cache each step would double
     its traffic. ``pos`` is a 0-d tensor, so no value leaves the card."""
     window = cache["slot_pos"].shape[1]
+    if isinstance(cache["slot_pos"], DTensor):
+        return _cache_write_sharded(cache, names, values, pos)
     slot = (pos % window).to(torch.long).reshape(1)
     for name, val in zip(names, values):
         arr = cache[name]
@@ -119,6 +123,24 @@ def _cache_write(cache: Params, names: Tuple[str, ...], values,
     cache["slot_pos"].index_copy_(
         1, slot, pos.to(torch.int32).expand(b, 1).contiguous())
     cache["next_pos"].copy_(pos + 1)
+    return cache
+
+
+def _cache_write_sharded(cache: Params, names: Tuple[str, ...], values,
+                         pos: torch.Tensor) -> Params:
+    """``_cache_write`` for a cache of DTensors, as a masked select of
+    the slot: each rank writes within its own shards, whichever dims
+    are sharded (DTensor's in-place ``index_copy_`` leaves a wrong
+    placement on its result). The dict gets the new tensors."""
+    window = cache["slot_pos"].shape[1]
+    hit = torch.arange(window, device=pos.device) == pos % window
+    for name, val in zip(names, values):
+        arr = cache[name]
+        mask = hit.reshape((1, window) + (1,) * (arr.ndim - 2))
+        cache[name] = torch.where(mask, val.to(arr.dtype), arr)
+    cache["slot_pos"] = torch.where(hit[None], pos.to(torch.int32),
+                                    cache["slot_pos"])
+    cache["next_pos"] = (pos + 1).to(cache["next_pos"].dtype)
     return cache
 
 
@@ -147,11 +169,18 @@ def _gqa_scores_mask(q, k, q_pos, k_pos, window: int):
 
 
 def _gqa_attend(q, k, v, q_pos, k_pos, window: int) -> torch.Tensor:
-    probs, g = _gqa_scores_mask(q, k, q_pos, k_pos, window)
-    b, s, h, _ = q.shape
-    dv = v.shape[-1]
-    out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
-    return out.reshape(b, s, h, dv).to(q.dtype)
+    """Attention of q (B,S,H,D) over k/v (B,T,K,D). On DTensors it runs
+    on each rank's sequences and heads (``shard_map``)."""
+    def attend(q, k, v, q_pos, k_pos):
+        probs, g = _gqa_scores_mask(q, k, q_pos, k_pos, window)
+        b, s, h, _ = q.shape
+        dv = v.shape[-1]
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
+        return out.reshape(b, s, h, dv).to(q.dtype)
+
+    heads = ("batch", None, "heads", None)
+    return shard_map(attend, (heads, heads, heads, ("batch", None),
+                              ("batch", None)), heads)(q, k, v, q_pos, k_pos)
 
 
 # ----------------------------------------------------------------------
@@ -185,6 +214,8 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = q.reshape(b, s, h, hd)
     k = k.reshape(b, s, kh, hd)
     v = v.reshape(b, s, kh, hd)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
+    k = constrain(k, "batch", "seq", "kv_heads", "head_dim")
 
     pos1 = positions[..., 0] if positions.dim() == 3 else positions
     if cfg.pos_type == "rope":
@@ -208,8 +239,9 @@ def attention_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         kc, vc = new_cache["k"], new_cache["v"]
         out = _gqa_attend(q, kc.to(q.dtype), vc.to(q.dtype),
                           pos1, new_cache["slot_pos"], window)
+    out = constrain(out, "batch", "seq", "heads", "head_dim")
     out = out.reshape(b, s, h * hd) @ p["w_o"].to(x.dtype)
-    return out, new_cache
+    return constrain(out, "batch", "seq", "embed"), new_cache
 
 
 def _flash_or_ref(cfg, q, k, v, q_pos, k_pos, window, use_flash):
@@ -250,6 +282,7 @@ def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, pos1, cfg.rope_theta)
     q = torch.cat([q_nope, q_rope], dim=-1)
+    q = constrain(q, "batch", "seq", "heads", "head_dim")
 
     # compressed kv + shared rotary key
     dkv = x @ p["w_dkv"].to(x.dtype)                # (B,S,lora+rope)
@@ -287,7 +320,7 @@ def mla_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
                                 pos1, new_cache["slot_pos"], window)
 
     out = out.reshape(b, s, h * vd) @ p["w_o"].to(x.dtype)
-    return out, new_cache
+    return constrain(out, "batch", "seq", "embed"), new_cache
 
 
 def _mla_absorbed(cfg, p, q_nope, q_rope, ckv_cache, kr_cache, q_pos, k_pos,

@@ -11,8 +11,10 @@ gathers each token's k routed pairs back through the inverse
 permutation and sums them, so the output on the card does not depend on
 the order of atomic adds: every MoE layer's output feeds the next
 layer's router, where a flipped bit could flip a near-tie.
-``repro``'s ``constrain`` calls are sharding hints with no counterpart
-here.
+On DTensors ``searchsorted`` and the global dispatch's ``index_add_``
+run replicated (DTensor has no sharding rule for them), and the expert
+products run on each rank's experts (``shard_map``), constrained to
+the expert axis as in ``repro``.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.parallel.sharding import constrain, replicated, shard_map
 from .common import ModelConfig, Params, dense_init, gated_act
 
 
@@ -40,10 +43,25 @@ def init_ffn(cfg: ModelConfig, generator: Optional[torch.Generator],
 
 
 def ffn_forward(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    h = constrain(_gated_hidden(cfg, p, x), "batch", "seq", "ff")
+    # DTensor places eagerly, op by op (GSPMD looks ahead): reduce the
+    # down projection's partial sums here, or they ride the residual
+    # stream into the LM head, which then runs unsharded over the vocab
+    return constrain(h @ p["w_down"].to(x.dtype), "batch", "seq", "embed")
+
+
+def _gated_hidden(cfg: ModelConfig, p: Params, x: torch.Tensor
+                  ) -> torch.Tensor:
     gate = x @ p["w_gate"].to(x.dtype)
     up = x @ p["w_up"].to(x.dtype)
-    h = gated_act(cfg, gate, up)
-    return h @ p["w_down"].to(x.dtype)
+    return gated_act(cfg, gate, up)
+
+
+def _shared_experts(cfg: ModelConfig, p: Params, x: torch.Tensor
+                    ) -> torch.Tensor:
+    """The shared experts' FFN over x (..., D), unconstrained as in
+    ``repro``."""
+    return _gated_hidden(cfg, p, x) @ p["w_down"].to(x.dtype)
 
 
 # ----------------------------------------------------------------------
@@ -94,11 +112,11 @@ def aux_load_balance_loss(cfg: ModelConfig, logits: torch.Tensor,
     e = cfg.n_experts
     probs = torch.softmax(logits.float(), dim=-1)
     me = probs.reshape(-1, e).mean(0)
-    flat = idx.reshape(-1)
+    flat = replicated(idx.reshape(-1))
     # whole-number float adds: exact in any order (bincount would read
     # the largest id back to the host on the card)
-    counts = torch.zeros((e,), dtype=torch.float32, device=idx.device) \
-        .index_add_(0, flat, torch.ones(flat.shape, device=idx.device))
+    counts = me.new_zeros((e,)).index_add_(
+        0, flat, flat.new_ones(flat.shape, dtype=torch.float32))
     frac = counts / counts.sum().clamp_min(1.0)
     return e * (me * frac).sum()
 
@@ -110,13 +128,22 @@ def moe_forward(cfg: ModelConfig, p: Params, x: torch.Tensor
     return moe_forward_global(cfg, p, x)
 
 
-def _experts(cfg: ModelConfig, p: Params, buf: torch.Tensor) -> torch.Tensor:
-    """Every expert's gated FFN over its slots: buf (..., E, C, D)."""
-    dt = buf.dtype
-    gate = torch.einsum("...ecd,edf->...ecf", buf, p["w_gate"].to(dt))
-    up = torch.einsum("...ecd,edf->...ecf", buf, p["w_up"].to(dt))
-    return torch.einsum("...ecf,efd->...ecd", gated_act(cfg, gate, up),
-                        p["w_down"].to(dt))
+def _experts(cfg: ModelConfig, p: Params, buf: torch.Tensor,
+             names) -> torch.Tensor:
+    """Every expert's gated FFN over its slots: buf (..., E, C, D) with
+    logical ``names``, which also constrain the hidden activations. On
+    DTensors it runs on each rank's experts (``shard_map``; the expert
+    weights are gathered over their FSDP axis)."""
+    def ffn(buf, w_gate, w_up, w_down):
+        dt = buf.dtype
+        gate = torch.einsum("...ecd,edf->...ecf", buf, w_gate.to(dt))
+        up = torch.einsum("...ecd,edf->...ecf", buf, w_up.to(dt))
+        h = constrain(gated_act(cfg, gate, up), *names)
+        return torch.einsum("...ecf,efd->...ecd", h, w_down.to(dt))
+
+    w = ("expert", None, None)
+    return shard_map(ffn, (names, w, w, w), names)(
+        buf, p["w_gate"], p["w_up"], p["w_down"])
 
 
 def moe_forward_local(cfg: ModelConfig, p: Params, x: torch.Tensor
@@ -142,6 +169,7 @@ def moe_forward_local(cfg: ModelConfig, p: Params, x: torch.Tensor
     stok = torch.gather(flat_tok, -1, order)
     seg_pos = torch.arange(s * k, device=dev)[None].expand(b, s * k)
     experts = torch.arange(e, device=dev)[None].expand(b, e).contiguous()
+    se = replicated(se)
     seg_start = torch.searchsorted(se, experts, right=False)
     seg_end = torch.searchsorted(se, experts, right=True)
     counts = seg_end - seg_start                           # (B, E)
@@ -156,7 +184,9 @@ def moe_forward_local(cfg: ModelConfig, p: Params, x: torch.Tensor
     src_c = src.clamp(0, s * k - 1).reshape(b, e * cap)
     buf = torch.gather(x_sorted, 1, src_c[..., None].expand(b, e * cap, d))
     buf = buf.reshape(b, e, cap, d) * valid[..., None].to(x.dtype)
-    out_e = _experts(cfg, p, buf).reshape(b, e * cap, d)
+    buf = constrain(buf, "batch", "expert", None, None)
+    out_e = _experts(cfg, p, buf, ("batch", "expert", None, None)) \
+        .reshape(b, e * cap, d)
 
     # combine: pair -> slot gather, weight, unsort (inverse perm), then
     # a static reshape-sum over each token's k routed pairs
@@ -168,8 +198,8 @@ def moe_forward_local(cfg: ModelConfig, p: Params, x: torch.Tensor
     out = contrib.reshape(b, s, k, d).sum(dim=2)
 
     if cfg.n_shared_experts:
-        out = out + ffn_forward(cfg, p["shared"], x)
-    return out, aux
+        out = out + _shared_experts(cfg, p["shared"], x)
+    return constrain(out, "batch", "seq", "embed"), aux
 
 
 def moe_forward_global(cfg: ModelConfig, p: Params, x: torch.Tensor
@@ -200,6 +230,7 @@ def moe_forward_global(cfg: ModelConfig, p: Params, x: torch.Tensor
     se, sw, stok = flat_e[order], flat_w[order], flat_tok[order]
     # position of each routed pair within its expert segment
     seg_pos = torch.arange(n * k, device=dev)
+    se = replicated(se)
     seg_start_per_e = torch.searchsorted(
         se, torch.arange(e, device=dev), right=False)
     pos_in_e = seg_pos - seg_start_per_e[se]
@@ -211,9 +242,13 @@ def moe_forward_global(cfg: ModelConfig, p: Params, x: torch.Tensor
     # not depend on the order of the adds.
     kept = keep[:, None]
     gathered = xt[stok] * kept.to(x.dtype)
-    buf = torch.zeros((e * cap, d), dtype=x.dtype, device=dev)
-    buf.index_add_(0, slot, torch.where(kept, gathered, 0.0))
-    out_e = _experts(cfg, p, buf.reshape(e, cap, d)).reshape(e * cap, d)
+    buf = xt.new_zeros((e * cap, d))
+    buf.index_add_(0, replicated(slot),
+                   replicated(torch.where(kept, gathered, 0.0)))
+    buf = constrain(buf.reshape(e, cap, d), "expert", None, "embed")
+    # expert dim already consumes the model axis; ff stays unsharded
+    out_e = _experts(cfg, p, buf, ("expert", None, None)) \
+        .reshape(e * cap, d)
 
     # Combine: each pair's weighted slot, back in token order (the
     # inverse permutation), summed over the token's k pairs.
@@ -222,5 +257,5 @@ def moe_forward_global(cfg: ModelConfig, p: Params, x: torch.Tensor
     out = contrib[inv].reshape(n, k, d).sum(dim=1)
 
     if cfg.n_shared_experts:
-        out = out + ffn_forward(cfg, p["shared"], xt)
-    return out.reshape(b, s, d), aux
+        out = out + _shared_experts(cfg, p["shared"], xt)
+    return constrain(out.reshape(b, s, d), "batch", "seq", "embed"), aux

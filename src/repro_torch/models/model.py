@@ -22,11 +22,14 @@ The vlm family (qwen2-vl) splices stub patch embeddings over the
 image-placeholder positions and rotates by M-RoPE; any family takes a
 stub ``embeds`` input in place of tokens.
 
-``repro``'s ``remat`` (rematerialisation under ``jax.checkpoint``) and
-``force_unscanned`` (unrolled layers for XLA cost analysis) do not apply
-to the port's eager forward: the fields stay in the config and are
-ignored here, training included (it keeps every activation for
-autograd).
+``remat="full"`` recomputes each layer (each group of a grouped
+segment) in the backward pass, as ``repro``'s ``jax.checkpoint`` of the
+scan body: ``torch.utils.checkpoint`` while grad is enabled. The same
+arithmetic runs twice, so the grads equal those of ``remat="none"``.
+``repro``'s ``force_unscanned`` (unrolled layers for XLA's cost
+analysis) needs nothing here: every layer already runs eagerly.
+Activations carry ``repro``'s ``constrain`` annotations, no-ops on plain
+tensors (:mod:`repro_torch.parallel.sharding`).
 """
 from __future__ import annotations
 
@@ -35,8 +38,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import constrain, shard_map, unbind_layers
 from .blocks import apply_layer, init_layer, init_layer_state
 from .common import (ModelConfig, Params, apply_norm, embed_init, init_norm,
                      sinusoidal_positions)
@@ -56,6 +62,18 @@ def tree_map(fn: Callable, tree, *rest):
         return [tree_map(fn, v, *(r[i] for r in rest))
                 for i, v in enumerate(tree)]
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree, path: Tuple = ()):
+    """``fn(path, leaf)`` of each leaf; ``path`` is the tuple of dict
+    keys and list indices that leads to it."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, path + (i,))
+                for i, v in enumerate(tree)]
+    return fn(path, tree)
 
 
 def tree_stack(trees: List):
@@ -102,6 +120,20 @@ def stacked_init(fn: Callable[[], Any], count: int):
 def tree_index(tree, i: int):
     """Layer ``i`` of a stacked tree (views of the stacked tensors)."""
     return tree_map(lambda leaf: leaf[i], tree)
+
+
+def tree_unbind(tree, count: int) -> List:
+    """The ``count`` layers of a stacked tree, as ``tree_index`` gives
+    them; ``unbind``'s gradient is one stack of the layers' gradients,
+    where ``count`` indexings would each add a zero-filled gradient of
+    the whole stack (quadratic in the depth)."""
+    layers = [{} for _ in range(count)] if isinstance(tree, dict) else None
+    if layers is None:
+        return unbind_layers(tree)
+    for k, v in tree.items():
+        for layer, sub in zip(layers, tree_unbind(v, count)):
+            layer[k] = sub
+    return layers
 
 
 # ----------------------------------------------------------------------
@@ -222,6 +254,29 @@ def params_from_numpy(cfg: ModelConfig, tree, device=None) -> Params:
 # Embedding / head
 # ----------------------------------------------------------------------
 
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of an embedding table (V, D). A DTensor table is
+    looked up vocab-parallel: each rank takes the ids in its shard of
+    the vocab and zeros elsewhere, and the partial sums over the vocab
+    axis are the rows (exactly: one term is not zero). DTensor's own
+    rules for this (the indexing's gradient, ``F.embedding``'s masked
+    partial sums) fail on a 2-D mesh in some PyTorch releases."""
+    if not isinstance(table, DTensor):
+        return table[ids]
+    rows = torch.arange(table.shape[0], device=ids.device)
+
+    def local(table, ids, rows):
+        if rows.numel() == 0:       # a shard past the end of the vocab
+            return table.new_zeros(ids.shape + table.shape[1:])
+        hit = (ids >= rows[0]) & (ids <= rows[-1])
+        got = table[(ids - rows[0]).clamp(0, rows.numel() - 1)]
+        return torch.where(hit[..., None], got, 0.0)
+
+    lead = ("batch",) + (None,) * (ids.ndim - 1)
+    return shard_map(local, (("vocab", None), lead, ("vocab",)),
+                     lead + (None,), partial="sum")(table, ids, rows)
+
+
 def embed_tokens(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
     """(B, S, D) activations: a stub front end's ``embeds``, the sum of
     the codebook embeddings (audio, tokens (B, K, S)), or the token
@@ -237,9 +292,9 @@ def embed_tokens(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
         x = torch.zeros(toks.shape[:1] + toks.shape[2:] + (cfg.d_model,),
                         dtype=dtype, device=emb.device)
         for k in range(cfg.n_codebooks):
-            x = x + emb[k][toks[:, k]].to(dtype)
+            x = x + _lookup(emb[k], toks[:, k]).to(dtype)
     else:
-        x = params["embed"][batch["tokens"].long()].to(dtype)
+        x = _lookup(params["embed"], batch["tokens"].long()).to(dtype)
         if cfg.arch_type == "vlm" and batch.get("patch_embeds") is not None:
             pe = batch["patch_embeds"].to(dtype)
             x = torch.where(batch["patch_mask"][..., None], pe, x)
@@ -247,15 +302,17 @@ def embed_tokens(cfg: ModelConfig, params: Params, batch: Dict) -> torch.Tensor:
         sin = sinusoidal_positions(x.shape[1], cfg.d_model,
                                    batch.get("pos_offset", 0), x.device)
         x = x + sin[None].to(x.dtype)
-    return x
+    return constrain(x, "batch", "seq", "embed")
 
 
 def lm_logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """(B, S, V) logits, or (B, S, K, V) for the audio family."""
     if cfg.arch_type == "audio":
-        return torch.einsum("bsd,kdv->bskv", x, params["lm_head"].to(x.dtype))
+        logits = torch.einsum("bsd,kdv->bskv", x,
+                              params["lm_head"].to(x.dtype))
+        return constrain(logits, "batch", "seq", None, "vocab")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head.to(x.dtype)
+    return constrain(x @ head.to(x.dtype), "batch", "seq", "vocab")
 
 
 # ----------------------------------------------------------------------
@@ -304,24 +361,32 @@ def _run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_states: Optional[List] = [] if states is not None else None
     shared = params.get("shared_attn")
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
 
     for si, (seg, sp) in enumerate(zip(layer_plan(cfg), params["segments"])):
         st_seg = states[si] if states is not None else None
         shared_for_seg = shared if seg.kind == "hybrid_group" else None
+        if seg.kind in GROUPED:
+            def fn(lp, h, st, seg=seg, shared_for_seg=shared_for_seg):
+                return _apply_group(cfg, seg.group, lp, h, positions, st,
+                                    window, use_kernel,
+                                    shared_attn=shared_for_seg)
+        else:
+            def fn(lp, h, st, seg=seg):
+                return apply_layer(cfg, lp, h, positions, seg.kind,
+                                   state=st, window=window,
+                                   use_kernel=use_kernel)
         seg_new = []
+        layer_params = tree_unbind(sp, seg.count) if seg.scanned else sp
         for li in range(seg.count):
-            lp = tree_index(sp, li) if seg.scanned else sp[li]
+            lp = layer_params[li]
             st = None
             if st_seg is not None:
                 st = tree_index(st_seg, li) if seg.scanned else st_seg[li]
-            if seg.kind in GROUPED:
-                x, ns, a = _apply_group(cfg, seg.group, lp, x, positions, st,
-                                        window, use_kernel,
-                                        shared_attn=shared_for_seg)
+            if remat:
+                x, ns, a = checkpoint(fn, lp, x, st, use_reentrant=False)
             else:
-                x, ns, a = apply_layer(cfg, lp, x, positions, seg.kind,
-                                       state=st, window=window,
-                                       use_kernel=use_kernel)
+                x, ns, a = fn(lp, x, st)
             aux_total = aux_total + a
             seg_new.append(ns)
         if new_states is not None:

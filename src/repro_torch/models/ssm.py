@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd
+from repro_torch.parallel.sharding import constrain, shard_map
 from .common import ModelConfig, Params, dense_init
 
 
@@ -106,6 +107,7 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     conv_out = F.silu(conv_out.float()).to(x.dtype)
     xs, bs, cs = torch.split(conv_out, [di, g * n, g * n], dim=-1)
     xs = xs.reshape(b, s, h, hp)
+    xs = constrain(xs, "batch", "seq", "heads", None)
     bs, cs = bs.reshape(b, s, g, n), cs.reshape(b, s, g, n)
     dt = F.softplus(dt_pre.float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())
@@ -120,18 +122,33 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         # group-broadcast B, C to heads
         bs = torch.repeat_interleave(bs, h // g, dim=2)
         cs = torch.repeat_interleave(cs, h // g, dim=2)
+        # per sequence and head: on DTensors, on each rank's shards
+        bh = ("batch", "heads")
         if state is None:
             # pick the largest chunk that divides S
             chunk = max(c for c in (cfg.ssm_chunk, 64, 32, 16, 8, 4, 2, 1)
                         if s % c == 0 and c <= s)
-            y, _ = ssd.ssd_reference(xs, dt, a, bs, cs, chunk=chunk,
-                                     d_skip=p["d_skip"])
+
+            def scan(xs, dt, a, bs, cs, d_skip):
+                return ssd.ssd_reference(xs, dt, a, bs, cs, chunk=chunk,
+                                         d_skip=d_skip)[0]
+
+            seq = ("batch", None, "heads", None)
+            y = shard_map(scan, (seq, seq[:3], ("heads",), seq, seq,
+                                 ("heads",)), seq)(
+                xs, dt, a, bs, cs, p["d_skip"])
         else:
-            y, new_ssm = ssd.ssd_step(state["ssm"], xs[:, 0], dt[:, 0],
-                                      a, bs[:, 0], cs[:, 0], p["d_skip"])
+            y, new_ssm = shard_map(
+                ssd.ssd_step, (bh + (None, None), bh + (None,), bh,
+                               ("heads",), bh + (None,), bh + (None,),
+                               ("heads",)),
+                (bh + (None,), bh + (None, None)))(
+                state["ssm"], xs[:, 0], dt[:, 0], a, bs[:, 0], cs[:, 0],
+                p["d_skip"])
             y = y[:, None]
             new_state["ssm"] = new_ssm
 
     y = y.reshape(b, s, di)
     y = _gated_rmsnorm(y, z, p["norm_scale"])
-    return y @ p["out_proj"].to(x.dtype), new_state
+    out = y @ p["out_proj"].to(x.dtype)
+    return constrain(out, "batch", "seq", "embed"), new_state

@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import constrain, shard_map
 from .common import ModelConfig, Params, dense_init
 
 NEG_INF = -1e30
@@ -127,11 +128,16 @@ def mlstm_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     q = (xm @ p["w_q"].to(x.dtype)).reshape(b, s, h, dqk)
     k = (xm @ p["w_k"].to(x.dtype)).reshape(b, s, h, dqk)
     v = (xm @ p["w_v"].to(x.dtype)).reshape(b, s, h, dv)
+    q = constrain(q, "batch", "seq", "heads", None)
     i_pre = xm @ p["w_ig"].to(x.dtype) + p["b_ig"].to(x.dtype)
     f_pre = xm @ p["w_fg"].to(x.dtype) + p["b_fg"].to(x.dtype)
 
     if state is None:
-        y = _mlstm_parallel(q, k, v, i_pre, f_pre)
+        # per sequence and head: on DTensors, on each rank's shards
+        heads = ("batch", None, "heads", None)
+        gates = ("batch", None, "heads")
+        y = shard_map(_mlstm_parallel, (heads, heads, heads, gates, gates),
+                      heads)(q, k, v, i_pre, f_pre)
         new_state = None
     else:
         if s != 1:
@@ -141,7 +147,8 @@ def mlstm_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
         y = y[:, None]
     y = y.reshape(b, s, di)
     y = _rms(y, p["norm_scale"]) * F.silu(gate.float()).to(x.dtype)
-    return y @ p["w_out"].to(x.dtype), new_state
+    out = y @ p["w_out"].to(x.dtype)
+    return constrain(out, "batch", "seq", "embed"), new_state
 
 
 # ----------------------------------------------------------------------
@@ -181,6 +188,9 @@ def init_slstm_state(cfg: ModelConfig, batch: int,
     }
 
 
+_SLSTM_CELL_PARAMS = ("r_z", "r_i", "r_f", "r_o", "b_z", "b_i", "b_f", "b_o")
+
+
 def _slstm_cell(cfg: ModelConfig, p: Params, state, zifo):
     """One timestep. zifo: (B, 4D) pre-activations from the input path."""
     b = zifo.shape[0]
@@ -215,19 +225,41 @@ def slstm_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     b, s, d = x.shape
     zifo = x @ p["w_in"].to(x.dtype)
 
+    # the recurrence runs on each rank's sequences (``shard_map``): the
+    # recurrent weights are per head and small, so they are replicated
+    rec = {k: p[k] for k in _SLSTM_CELL_PARAMS}
+    rec_names = tuple((None,) * p[k].ndim for k in _SLSTM_CELL_PARAMS)
     if state is None:
-        st = init_slstm_state(cfg, b, x.device)
-        hs = []
-        for t in range(s):
-            st = _slstm_cell(cfg, p, st, zifo[:, t])
-            hs.append(st["h"])
-        y = torch.stack(hs, dim=1).to(x.dtype)                # (B,S,D)
+        def scan(zifo, *weights):
+            pl = dict(zip(_SLSTM_CELL_PARAMS, weights))
+            st = init_slstm_state(cfg, zifo.shape[0], zifo.device)
+            hs = []
+            for t in range(zifo.shape[1]):
+                st = _slstm_cell(cfg, pl, st, zifo[:, t])
+                hs.append(st["h"])
+            return torch.stack(hs, dim=1)
+
+        y = shard_map(scan, (("batch", None, None),) + rec_names,
+                      ("batch", None, None))(zifo, *rec.values())
+        y = y.to(x.dtype)                                     # (B,S,D)
         new_state = None
     else:
         if s != 1:
             raise ValueError(f"decode expects one new token, got {s}")
-        new_state = _slstm_cell(cfg, p, state, zifo[:, 0])
+        keys = ("c", "n", "h", "m")
+
+        def step(zifo_t, *rest):
+            pl = dict(zip(_SLSTM_CELL_PARAMS, rest[len(keys):]))
+            new = _slstm_cell(cfg, pl, dict(zip(keys, rest[:len(keys)])),
+                              zifo_t)
+            return tuple(new[k] for k in keys)
+
+        row = ("batch", None)
+        new_state = dict(zip(keys, shard_map(
+            step, (row,) * (1 + len(keys)) + rec_names, (row,) * len(keys))(
+            zifo[:, 0], *(state[k] for k in keys), *rec.values())))
         y = new_state["h"][:, None].to(x.dtype)
 
     y = _rms(y, p["norm_scale"])
-    return y @ p["w_out"].to(x.dtype), new_state
+    out = y @ p["w_out"].to(x.dtype)
+    return constrain(out, "batch", "seq", "embed"), new_state

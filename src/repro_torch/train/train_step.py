@@ -12,9 +12,11 @@ from __future__ import annotations
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models import model as lm
 from repro_torch.models.common import ModelConfig
+from repro_torch.parallel.sharding import placed_like, shard_map
 from .optim import OptimConfig, adamw_update
 
 AUX_WEIGHT = 0.01  # MoE load-balance loss weight
@@ -23,9 +25,35 @@ AUX_WEIGHT = 0.01  # MoE load-balance loss weight
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """logits: (..., V); targets: int (...). Mean NLL in fp32."""
     logits = logits.float()
+    if isinstance(logits, DTensor):
+        return _cross_entropy_sharded(logits, targets)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     return (logz - gold).mean()
+
+
+def _cross_entropy_sharded(logits: torch.Tensor, targets: torch.Tensor
+                           ) -> torch.Tensor:
+    """``cross_entropy`` with the vocab dim sharded (vocab-parallel):
+    each rank reduces over its own shard of the vocab (the max, the sum
+    of exponentials, the gold logit picked by a mask against its shard
+    of the vocab ids) and only the (..., ) partial results cross ranks.
+    The log-sum-exp is logsumexp's own two passes."""
+    lead = ("batch",) + (None,) * (logits.ndim - 2)
+    full = lead + ("vocab",)
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    m = shard_map(lambda lg: lg.amax(dim=-1), (full,), lead,
+                  partial="max")(logits.detach())
+
+    def sums(lg, m, tgt, ids):
+        hit = tgt.long()[..., None] == ids
+        return (torch.exp(lg - m[..., None]).sum(-1),
+                torch.where(hit, lg, 0.0).sum(-1))
+
+    sum_exp, gold = shard_map(sums, (full, lead, lead, ("vocab",)),
+                              (lead, lead), partial="sum")(
+        logits, m, targets, ids)
+    return (torch.log(sum_exp) + m - gold).mean()
 
 
 def loss_fn(cfg: ModelConfig, params: Any, batch: Dict,
@@ -51,7 +79,7 @@ def value_and_grad(cfg: ModelConfig, params: Any, batch: Dict,
     with torch.enable_grad():
         loss, metrics = loss_fn(cfg, live, batch, use_kernel)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else placed_like(g, p)
              for p, g in zip(leaves, grads)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return (loss.detach(), metrics), lm.tree_unflatten(params, grads)

@@ -4,7 +4,11 @@ the chaos scenarios and the allocator daemon through the ``cuda``
 engine against the host ``numpy`` engine, the smoke models'
 forwards (zamba2, the dense-stack and MoE families) through the kernels
 against their plain paths, the xlstm smoke model and one smoke train
-step on the card against the CPU, and K4 and K5 refusing autograd.
+step on the card against the CPU, K4 and K5 refusing autograd, and
+meshes on the card (a process group of one rank, NCCL): ``shard_batch``
+and ``distribute_params`` on a 1x1 mesh, a smoke train step on it
+against the unmeshed step, and the RFold cluster on the ``cuda``
+engine training a 1-XPU job.
 Every test is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor ``repro``, so it also runs where only the
 port's requirements are installed:
@@ -957,3 +961,92 @@ def test_smoke_train_step_on_card_matches_cpu(card, arch):
     assert all(bool(torch.isfinite(t).all()) for t in tlm.tree_leaves(p2))
     assert int(o2["step"]) == 1
     assert float(m2["ce"]) == pytest.approx(float(m["ce"]), rel=1e-6)
+
+
+# ----------------------------------------------------------------------
+# Meshes on the card: a process group of one rank (NCCL)
+# ----------------------------------------------------------------------
+
+@pytest.fixture
+def nccl1(card):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import ensure_process_group
+    assert ensure_process_group(card)
+    try:
+        yield card
+    finally:
+        dist.destroy_process_group()
+
+
+def test_shard_batch_and_distribute_params_on_a_1x1_mesh(nccl1):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as ts
+    from repro_torch.train.data import shard_batch, synthetic_batches
+
+    cfg = smoke_variant(get_config("olmo-1b"))
+    mesh = make_mesh((1, 1), ("data", "model"))
+    assert mesh.device_type == "cuda"
+    batch = next(synthetic_batches(cfg, 2, 16, seed=0, device=nccl1))
+    for k, v in shard_batch(batch, mesh).items():
+        assert isinstance(v, DTensor) and v.to_local().is_cuda
+        assert torch.equal(v.full_tensor(), batch[k])
+    params = tlm.init_model(cfg, torch.Generator(nccl1).manual_seed(0),
+                            nccl1)
+    dp = ts.distribute_params(params, mesh, ts.rules_for(mesh))
+    for a, b in zip(tlm.tree_leaves(params), tlm.tree_leaves(dp)):
+        assert isinstance(b, DTensor) and torch.equal(b.full_tensor(), a)
+
+
+def test_smoke_train_step_on_a_1x1_mesh_matches_unmeshed_on_card(nccl1):
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel import sharding as ts
+    from repro_torch.train.data import shard_batch, synthetic_batches
+    from repro_torch.train.optim import (OptimConfig, adamw_update,
+                                         init_opt_state)
+    from repro_torch.train.train_step import train_step, value_and_grad
+
+    cfg = smoke_variant(get_config("olmo-1b"))
+    mesh = make_mesh((1, 1), ("data", "model"))
+    rules = ts.rules_for(mesh)
+    params = tlm.init_model(cfg, torch.Generator(nccl1).manual_seed(0),
+                            nccl1)
+    batch = next(synthetic_batches(cfg, 2, 16, seed=0, device=nccl1))
+    oc = OptimConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    opt = init_opt_state(params)
+    (_, m1), g1 = value_and_grad(cfg, params, batch)
+    dp = ts.distribute_params(params, mesh, rules)
+    with ts.logical_rules(rules):
+        p2, _, m2 = train_step(cfg, oc, dp, init_opt_state(dp),
+                               shard_batch(batch, mesh))
+        (_, _), g2 = value_and_grad(cfg, dp, shard_batch(batch, mesh))
+    assert float(m2["ce"].full_tensor()) == pytest.approx(float(m1["ce"]),
+                                                          rel=1e-5)
+    g2 = tlm.tree_map(ts.full_tensor, g2)
+    for a, b in zip(tlm.tree_leaves(g1), tlm.tree_leaves(g2)):
+        torch.testing.assert_close(b, a, rtol=1e-5, atol=1e-6)
+    own = adamw_update(oc, params, g2, opt)[0]
+    for a, b in zip(tlm.tree_leaves(own), tlm.tree_leaves(p2)):
+        torch.testing.assert_close(b.full_tensor(), a, rtol=1e-5, atol=1e-6)
+
+
+def test_rfold_cluster_on_the_cuda_engine_trains_a_1_xpu_job(nccl1):
+    from repro_torch.core.geometry import JobShape
+    from repro_torch.kernels.fitmask import kernel
+    from repro_torch.launch.cluster import RFoldCluster
+
+    kernel.reset_launch_counts()
+    cluster = RFoldCluster(num_xpus=64, cube_n=2)
+    host = RFoldCluster(num_xpus=64, cube_n=2, engine="numpy", device="cpu")
+    job = cluster.submit(0, "olmo-1b", JobShape((1, 1, 1)), seed=0)
+    assert job["placement"] == host.submit(
+        0, "olmo-1b", JobShape((1, 1, 1)), seed=0)["placement"]
+    counts = kernel.launch_counts()
+    assert counts["occupancy_counts"] > 0
+    assert counts["fitmask_multibox"] + counts["fitmask_batched"] > 0
+    losses = cluster.run_steps(0, 2)
+    assert losses == pytest.approx(host.run_steps(0, 2), rel=1e-4)
+    cluster.finish(0)
+    assert cluster.utilization() == 0.0

@@ -145,6 +145,9 @@ import benchmarks_torch.service_bench
 import repro_torch.train.optim, repro_torch.train.data
 import repro_torch.train.checkpoint, repro_torch.train.train_step
 import repro_torch.launch.train, repro_torch.models.xlstm
+import repro_torch.parallel.sharding, repro_torch.launch.mesh
+import repro_torch.launch.cluster, repro_torch.launch.dryrun
+import repro_torch.launch.perf, repro_torch.configs.shapes
 import repro_torch.configs.registry as reg
 for mod in ("llama3_8b", "phi4_mini_3_8b", "qwen1_5_110b", "olmo_1b",
             "qwen2_vl_7b", "musicgen_medium", "zamba2_1_2b",

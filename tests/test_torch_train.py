@@ -1,8 +1,8 @@
 """Port parity for training: AdamW and its schedule, the synthetic data,
 checkpoints across the packages, the loss's gradients against
 ``jax.grad``, the train step and gradient accumulation, and the
-launcher. Mirrors tests/test_train_substrate.py (``shard_batch`` comes
-with the port of ``parallel/``).
+launcher. Mirrors tests/test_train_substrate.py (its ``shard_batch``
+test is ported in tests/test_torch_launch.py).
 
 ``repro``'s parameters from ``init_model(cfg, PRNGKey(0))`` are carried
 across with ``params_from_numpy``; batches come from each package's
@@ -389,9 +389,13 @@ def test_train_launcher_on_cpu(tmp_path, capsys):
 
 
 def test_train_launcher_has_no_mesh_flag():
-    with pytest.raises(SystemExit):
-        train_launcher.main(["--arch", "olmo-1b", "--smoke", "--mesh", "1x1",
+    # --mesh exists now; a mesh larger than the process group it starts
+    # (one rank on the CPU) raises and leaves no group behind
+    import torch.distributed as dist
+    with pytest.raises(ValueError, match="needs 2 ranks"):
+        train_launcher.main(["--arch", "olmo-1b", "--smoke", "--mesh", "2x1",
                              "--device", "cpu"])
+    assert not dist.is_initialized()
 
 
 def test_quickstart_example_on_cpu(capsys):
