@@ -5,7 +5,7 @@ through it), the occupancy counts (K2) and the fused bucketed launch
 (bool planes and counts in one launch).
 
     python3 benchmarks_torch/fitmask_bench.py [--src DIR] [--tree NAME]
-                                              [--variants]
+        [--variants] [--quick] [--out PATH]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's). Pointed at another checkout (a ``git
@@ -32,12 +32,19 @@ the cells of ``repro``'s ``benchmarks/fitmask_bench.py`` (grids 8^3 and
 16^3, B 1, 8 and 64, K 1, 4, 8 and 16; its candidate boxes and grids of
 30 % occupancy from numpy's generator, seed 0). Each timed call is first
 held bit-exact against K1. Prints ``singlepass`` rows and the headline,
-the multi-box speed-up at 16^3 with K >= 4.
+the multi-box speed-up at 16^3 with K >= 4. ``--quick`` runs only the
+single-pass section's headline cell (16^3, B 8, K 4), as repro's
+``--quick``. The JSON (``--out``, default
+``experiments/fitmask_bench_torch.json``; '' disables; never a committed
+BENCH_*.json) holds the card, the case rows (``cases``: kernel, case,
+box, plan, ms), the single-pass rows (``sweep``: grid, batch, k,
+multibox_ms, singlepass_ms, speedup) and the headline.
 """
 from __future__ import annotations
 
 import argparse
-import subprocess
+import json
+import os
 import sys
 from pathlib import Path
 
@@ -56,6 +63,8 @@ CANDIDATE_BOXES = [
 ]
 SINGLEPASS_CELLS = [(grid, bsz, k) for grid in ((8, 8, 8), (16, 16, 16))
                     for bsz in (1, 8, 64) for k in (1, 4, 8, 16)]
+# --quick: the headline cell of repro's --quick.
+QUICK_CELL = ((16, 16, 16), 8, 4)
 
 
 def boxes_for(grid, k):
@@ -105,7 +114,16 @@ def main(argv=None) -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--tree", default="this")
     ap.add_argument("--variants", action="store_true")
+    ap.add_argument("--quick", action="store_true",
+                    help="the single-pass headline cell only (16^3, B 8, "
+                         "K 4)")
+    ap.add_argument("--out", default=os.path.join(
+        "experiments", "fitmask_bench_torch.json"),
+        help="JSON output ('' disables); never a committed BENCH_*.json")
     args = ap.parse_args(argv)
+    if args.out and os.path.basename(args.out).startswith("BENCH_"):
+        ap.error("the committed BENCH_*.json snapshots are the reference "
+                 "package's; write the port's JSON elsewhere")
     if not torch.cuda.is_available():
         print("fitmask_bench: no CUDA device", file=sys.stderr)
         return 1
@@ -114,10 +132,8 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.kernels.fitmask import kernel
 
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader", "-i", "0"],
-                         capture_output=True, text=True,
-                         check=True).stdout.strip())
+    card = cs.card_line()
+    print(card)
     print(f"# {args.tree}: {Path(kernel.__file__).resolve()}")
     device = torch.device("cuda")
 
@@ -132,6 +148,8 @@ def main(argv=None) -> int:
                                      f"({plan}): differs from plain")
             ms = cs.device_ms(fn, cs.time_ms(fn))
         box = "" if box is None else "x".join(map(str, box))
+        cases.append(dict(kernel=name, case=label, box=box, plan=plan,
+                          ms=ms))
         print(f"fitmask_bench,{args.tree},{name},{label},{box},{plan},{ms}",
               flush=True)
 
@@ -140,6 +158,10 @@ def main(argv=None) -> int:
             lambda: kernel.occupancy_counts(occ),
             lambda: kernel.occupancy_counts_plain(occ))
 
+    cases = []
+    out = {"tree": args.tree, "card": card, "cases": cases, "sweep": []}
+    if args.quick:
+        return _finish(kernel, device, args.out, out, [QUICK_CELL])
     print(f"fitmask_bench,{args.tree},launch floor,,,,{cs.launch_floor_ms()}")
     bucketed = getattr(kernel, "fitmask_multibox_bucketed", None)
     for label, bsz, dims, occ in cs.count_inputs(device):
@@ -185,9 +207,35 @@ def main(argv=None) -> int:
                     kernel._launch_multibox(occ, host, plan), plain)
     if not hasattr(kernel, "fitmask_multibox_singlepass_baseline"):
         print(f"fitmask_bench,{args.tree},singlepass,,,,absent")
-        return 0
-    singlepass_sweep(kernel, device,
-                     lambda fn: cs.device_ms(fn, cs.time_ms(fn)))
+        return _write(args.out, out)
+    return _finish(kernel, device, args.out, out, SINGLEPASS_CELLS)
+
+
+def _finish(kernel, device, path, out, cells) -> int:
+    """The single-pass section on ``cells`` into ``out``, then the JSON."""
+    import chip_smoke as cs
+
+    rows = singlepass_sweep(kernel, device,
+                            lambda fn: cs.device_ms(fn, cs.time_ms(fn)),
+                            cells=cells)
+    out["sweep"] = rows
+    head = [r["speedup"] for r in rows if r["grid"] == "16x16x16"
+            and r["k"] >= 4]
+    if head:
+        out["headline"] = {
+            "criterion": "one K1 launch beats K launches of K3 (K >= 4, "
+                         "16^3, device time)",
+            "min_speedup": min(head), "max_speedup": max(head),
+            "pass": all(h > 1.0 for h in head)}
+    return _write(path, out)
+
+
+def _write(path, out) -> int:
+    if path:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(out, f, indent=1)
+        print(f"# wrote {path}")
     return 0
 
 

@@ -42,6 +42,8 @@ Three sections, as ``benchmarks/fleet_bench.py`` has them:
   injected faults, fails over to the next engine of the chain on the
   same device (``torch`` on the card), and the first post-failover
   flushes are checked against the host numpy oracle: 0 mismatches.
+  Skipped for ``--engine numpy``, the chain's floor (nothing to fail
+  over to).
 
 ``--profile`` adds a cProfile of one per-task run of ``PROFILE_CONFIG``
 (the configuration with the most mask queries, 200 jobs) on
@@ -431,11 +433,17 @@ def main(argv=None) -> Dict:
                 print(f"profile,{name},{row['tottime_s']},"
                       f"{row['cumtime_s']},{row['ncalls']},"
                       f"{row['function']}")
-    can = canary_section(args.seed0, args.engine, args.device)
-    print(f"# canary: {can['start_engine']} -> {can['adopted_engine']} on "
-          f"{can['device']} after {can['engine_failovers']} failover(s), "
-          f"{can['canary_checks']} checks {can['canary_mismatches']} "
-          f"mismatches (pass={can['pass']})")
+    from repro_torch.core.engineconfig import failover_candidates
+    can = None
+    if failover_candidates(args.engine):
+        can = canary_section(args.seed0, args.engine, args.device)
+        print(f"# canary: {can['start_engine']} -> {can['adopted_engine']} "
+              f"on {can['device']} after {can['engine_failovers']} "
+              f"failover(s), {can['canary_checks']} checks "
+              f"{can['canary_mismatches']} mismatches (pass={can['pass']})")
+    else:
+        print(f"# canary: skipped ({args.engine} is the failover chain's "
+              "floor)")
 
     pass_numpy = bool(par["identical"] and par["numpy_speedup"]
                       and par["numpy_speedup"] >= NUMPY_FLOOR)
@@ -456,8 +464,9 @@ def main(argv=None) -> Dict:
             "engine_speedup": {e["max_inflight"]: e["speedup"]
                                for e in replays},
             "pass_numpy": pass_numpy, "pass_engine": pass_engine,
-            "pass_canary": can["pass"],
-            "pass": pass_numpy and all(pass_engine.values()) and can["pass"],
+            "pass_canary": can and can["pass"],
+            "pass": (pass_numpy and all(pass_engine.values())
+                     and (can is None or can["pass"])),
         },
     }
     print("# headline: " + json.dumps(results["headline"]))
@@ -467,7 +476,8 @@ def main(argv=None) -> Dict:
             json.dump(results, f, indent=1, default=str)
         print(f"# wrote {args.out}")
     wrong = [name for name, ok in (
-        ("parity", par["identical"]), ("canary", can["canary_mismatches"] == 0),
+        ("parity", par["identical"]),
+        ("canary", can is None or can["canary_mismatches"] == 0),
         *((f"replay lanes {e['max_inflight']}", e["identical"])
           for e in replays),
         *((f"eval, {name}", row["identical"])

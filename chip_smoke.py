@@ -163,16 +163,36 @@
    probes' extrapolation equal to the full-depth count, remat_full's
    FLOPs 20-45 % above baseline's, no_fsdp's collective bytes below
    baseline's.
-17. The single-pass baseline's path: ``benchmarks_torch/fitmask_bench.py``'s
+17. Bench phase, the main path's benches of ``benchmarks_torch/`` on the
+   card against the host: ``allocator_bench.py --job-scales 80`` with
+   its naive anchor on ``cuda`` and on ``numpy`` (placements and JCR of
+   every policy and of the anchor identical; K1, K2 and K3 launched by
+   the ``cuda`` run; a ``bench_alloc`` line per engine with each
+   policy's placements a second); ``reconfig_bench.py --quick`` on both
+   (JCR batched = naive, the bench's own assert, and placements and JCR
+   equal across the engines; the headline must pass on ``numpy``, the
+   reference CI gate's claim; on ``cuda`` its speedups and ``pass`` are
+   printed, not gated: ``bench_reconfig`` lines); ``beyond.py --runs 1
+   --num-jobs 200`` on both (the four variants' aggregates identical);
+   ``kernels_bench.py`` on the card (each sibling row held against its
+   plain row by the bench; every row printed); and ``roofline.py`` and
+   ``report.py`` on the dry-run phase's JSONs: the olmo-1b train_4k row's
+   terms must equal the JSON's ``probes.extrapolated`` counts over
+   ``repro_torch.launch.perf``'s H100 constants, printed beside the
+   ``perf`` baseline's terms (``roofline`` lines), then the report's
+   roofline table.
+18. The single-pass baseline's path: ``benchmarks_torch/fitmask_bench.py``'s
    single-pass section at its headline cell (16^3, B 8, K 4).
-18. Prints one JSON line per the kernel table (K4's launches by served
-   model), then the result line.
+19. Prints one JSON line per the kernel table (K4's launches by served
+   model; the benches' launches under ``benches`` and ``kernels_bench``),
+   then the result line.
 
 Launch counters are set to 0 just before each main path (placement,
 fleet, each run of the scenario path, service, each model's kernel-path
-prefill, the training runs, the cluster, the bench's single-pass
-section) and read just after; every kernel must have been launched on a
-path, and none on the xLSTM prefill or the training runs.
+prefill, the training runs, the cluster, each bench's ``cuda`` run, the
+bench's single-pass section) and read just after; every kernel must have
+been launched on a path, and none on the xLSTM prefill or the training
+runs.
 
 Any failure raises and exits non-zero. With no CUDA device, or without
 the repository's ``src/repro_torch`` beside it, it exits non-zero and
@@ -183,6 +203,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2046,8 +2067,6 @@ def train_phase(device, record=None):
     ``train_step(use_kernel=True)`` refused (K4 has no backward). Returns
     the K4 and K5 launches of the launcher's run; ``record`` (a dict)
     gets its history, s a step, tokens/s and peak."""
-    import shutil
-
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.ssd_scan import kernel as ssd
@@ -2262,35 +2281,30 @@ def cluster_phase(kernel, device):
     return counts
 
 
-def dryrun_phase(device):
+def dryrun_phase(device, out):
     """The dry-run and perf harness on a fake process group (see the
-    module docstring, item 16). Host work only: the card's allocated
-    memory must not grow."""
-    import shutil
-
+    module docstring, item 16), writing the dry-run JSONs to ``out`` (the
+    bench phase reads them). Host work only: the card's allocated memory
+    must not grow. Returns the perf variants' rows by name."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import SHAPES
     from repro_torch.launch import dryrun, perf
 
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
-    out = os.path.join(ROOT, "build", "chip_smoke_dryrun")
-    try:
-        t0 = time.perf_counter()
-        dryrun.main(["--arch", "olmo-1b", "--shape", "train_4k", "--mesh",
-                     "single", "--out", out])
-        t_olmo = time.perf_counter() - t0
-        with open(os.path.join(out, "olmo-1b__train_4k__single.json")) as f:
-            res = json.load(f)
-        t0 = time.perf_counter()
-        dryrun.main(["--arch", "zamba2-1.2b", "--shape", "decode_32k",
-                     "--mesh", "single", "--no-probe", "--out", out])
-        t_zamba = time.perf_counter() - t0
-        with open(os.path.join(out, "zamba2-1.2b__decode_32k__single.json")
-                  ) as f:
-            dec = json.load(f)
-    finally:
-        shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    dryrun.main(["--arch", "olmo-1b", "--shape", "train_4k", "--mesh",
+                 "single", "--out", out])
+    t_olmo = time.perf_counter() - t0
+    with open(os.path.join(out, "olmo-1b__train_4k__single.json")) as f:
+        res = json.load(f)
+    t0 = time.perf_counter()
+    dryrun.main(["--arch", "zamba2-1.2b", "--shape", "decode_32k",
+                 "--mesh", "single", "--no-probe", "--out", out])
+    t_zamba = time.perf_counter() - t0
+    with open(os.path.join(out, "zamba2-1.2b__decode_32k__single.json")
+              ) as f:
+        dec = json.load(f)
     t0 = time.perf_counter()
     one = dryrun.one_rank_cost(get_config("olmo-1b"), SHAPES["train_4k"],
                                device=device)
@@ -2343,6 +2357,171 @@ def dryrun_phase(device):
     if mem1 > mem0:
         raise AssertionError(f"the dry-run allocated {mem1 - mem0} bytes "
                              "on the card")
+    return rows
+
+
+def counted(kernel, fn):
+    """``fn()`` with every kernel's launch counter set to 0 just before
+    and read just after: ``(result, {kernel name: launches})``."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ssd_scan import kernel as ssd
+
+    for mod in (kernel, fa, ssd):
+        mod.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {}
+    for mod in (kernel, fa, ssd):
+        counts.update(mod.launch_counts())
+    return out, counts
+
+
+def add_counts(total, counts):
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def bench_phase(kernel, dryrun_dir, perf_rows):
+    """The main path's benches (see the module docstring, item 17).
+    Returns the kernels' launches by path: ``benches`` (the ``cuda``
+    runs of allocator_bench, reconfig_bench and beyond) and
+    ``kernels_bench``."""
+    from benchmarks_torch import (allocator_bench, beyond, kernels_bench,
+                                  reconfig_bench, report, roofline)
+    from repro_torch.launch.perf import HBM_BW, NVLINK_BW, PEAK_FLOPS
+
+    engines = ("cuda", "numpy")
+    benches = {}
+    walls = {}
+    out = os.path.join(ROOT, "build", "chip_smoke_bench")
+    os.makedirs(out, exist_ok=True)
+    try:
+        # allocator_bench at 80 jobs with the naive anchor, in turns
+        alloc = {}
+        for eng in engines:
+            t0 = time.perf_counter()
+            alloc[eng], counts = counted(kernel, lambda: allocator_bench.main(
+                ["--job-scales", "80", "--engine", eng, "--out", ""]))
+            walls[f"allocator {eng}"] = time.perf_counter() - t0
+            if eng == "cuda":
+                add_counts(benches, counts)
+                missing = [n for n in ("fitmask_multibox", "fitmask_batched",
+                                       "occupancy_counts") if not counts[n]]
+                if missing:
+                    raise AssertionError(f"allocator_bench on cuda launched "
+                                         f"no {missing}: {counts}")
+            print(f"bench_alloc,{eng},placements_per_sec," + ",".join(
+                f"{label}:{r['80']['placements_per_sec']}"
+                for label, r in alloc[eng]["policies"].items())
+                + f",naive_rfold_80:"
+                f"{alloc[eng]['baseline']['naive_rfold_80']['placements_per_sec']}"
+                f",speedup_vs_naive:{alloc[eng]['baseline']['speedup_vs_naive']}")
+
+        def outcome(r):
+            return (r["placements"], r["jcr"])
+        for label in alloc["numpy"]["policies"]:
+            got = outcome(alloc["cuda"]["policies"][label]["80"])
+            want = outcome(alloc["numpy"]["policies"][label]["80"])
+            if got != want:
+                raise AssertionError(f"allocator_bench {label}: (placements,"
+                                     f" jcr) {got} on cuda, {want} on numpy")
+        naive = [outcome(alloc[e]["baseline"]["naive_rfold_80"])
+                 for e in engines]
+        if naive[0] != naive[1]:
+            raise AssertionError(f"naive anchor {naive[0]} on cuda, "
+                                 f"{naive[1]} on numpy")
+
+        # reconfig_bench --quick, in turns
+        rec = {}
+        for eng in engines:
+            t0 = time.perf_counter()
+            rec[eng], counts = counted(kernel, lambda: reconfig_bench.main(
+                ["--quick", "--engine", eng, "--out", ""]))
+            walls[f"reconfig {eng}"] = time.perf_counter() - t0
+            if eng == "cuda":
+                add_counts(benches, counts)
+            head = rec[eng]["headline"]
+            print(f"bench_reconfig,{eng},speedups,"
+                  f"{json.dumps(head['speedups'])},pass,{head['pass']},"
+                  + ",".join(f"{cube}:batched_s:{r['batched']['sim_seconds']}"
+                             f":naive_s:{r['naive']['sim_seconds']}"
+                             for cube, r in rec[eng]["cube_sizes"].items()))
+        for cube, r in rec["numpy"]["cube_sizes"].items():
+            for kind in ("batched", "naive"):
+                got = outcome(rec["cuda"]["cube_sizes"][cube][kind])
+                if got != outcome(r[kind]):
+                    raise AssertionError(f"reconfig_bench {cube} {kind}: "
+                                         f"{got} on cuda, {outcome(r[kind])} "
+                                         "on numpy")
+        if not rec["numpy"]["headline"]["pass"]:
+            raise AssertionError("reconfig_bench's headline failed on numpy: "
+                                 f"{rec['numpy']['headline']}")
+
+        # beyond --runs 1 --num-jobs 200, in turns
+        aggs = {}
+        for eng in engines:
+            path = os.path.join(out, f"beyond_{eng}.json")
+            t0 = time.perf_counter()
+            _, counts = counted(kernel, lambda: beyond.main(
+                ["--runs", "1", "--num-jobs", "200", "--engine", eng,
+                 "--out", path]))
+            walls[f"beyond {eng}"] = time.perf_counter() - t0
+            if eng == "cuda":
+                add_counts(benches, counts)
+            with open(path) as f:
+                aggs[eng] = json.load(f)
+        if aggs["cuda"] != aggs["numpy"]:
+            raise AssertionError(f"beyond: {aggs['cuda']} on cuda, "
+                                 f"{aggs['numpy']} on numpy")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+    # kernels_bench on the card: the bench holds each sibling row
+    rows = []
+    t0 = time.perf_counter()
+    _, micro = counted(kernel, lambda: kernels_bench.main(
+        [], emit=rows.append))
+    walls["kernels_bench"] = time.perf_counter() - t0
+    for row in rows:
+        print("kernels_bench," + row)
+    names = {row.split(",")[0] for row in rows}
+    siblings = {"attention_kernel_s256", "attention_kernel_s1024",
+                "ssd_kernel_chunk64", "ssd_kernel_chunk256",
+                "fitmask_kernel_64cubes"}
+    if not siblings <= names:
+        raise AssertionError(f"kernels_bench printed no {siblings - names}")
+
+    # roofline and report on the dry-run phase's JSONs
+    t0 = time.perf_counter()
+    roof = roofline.load_rows(dryrun_dir)
+    with open(os.path.join(dryrun_dir, "olmo-1b__train_4k__single.json")
+              ) as f:
+        ex = json.load(f)["probes"]["extrapolated"]
+    row = next(r for r in roof
+               if (r["arch"], r["shape"]) == ("olmo-1b", "train_4k"))
+    want = {"t_compute_s": ex["flops"] / PEAK_FLOPS["bfloat16"],
+            "t_memory_s": ex["bytes"] / HBM_BW,
+            "t_collective_s": ex["collective_bytes"] / NVLINK_BW}
+    base = perf_rows["baseline"]
+    print("roofline,arch,shape,source,t_compute_s,t_memory_s,"
+          "t_collective_s,dominant,useful_ratio")
+    for r in roof:
+        print(f"roofline,{r['arch']},{r['shape']},dryrun,{r['t_compute_s']},"
+              f"{r['t_memory_s']},{r['t_collective_s']},{r['dominant']},"
+              f"{r['useful_ratio']}")
+    print(f"roofline,olmo-1b,train_4k,perf baseline,{base['t_compute_s']},"
+          f"{base['t_memory_s']},{base['t_collective_s']},"
+          f"{base['dominant']},")
+    for key, value in want.items():
+        if row[key] != value:
+            raise AssertionError(f"roofline {key} = {row[key]}, the dry-run's "
+                                 f"counts over the H100 terms give {value}")
+    path = os.path.join(dryrun_dir, "roofline", "roofline_torch.json")
+    roofline.main(["--dryrun-dir", dryrun_dir, "--out", path])
+    print(report.roofline_table(path))
+    walls["roofline and report"] = time.perf_counter() - t0
+    print("bench_phase,walls_s," + json.dumps(walls))
+    return {"benches": benches, "kernels_bench": micro}
 
 
 def singlepass_path(kernel, device):
@@ -2441,9 +2620,21 @@ def main() -> int:
     for name in by_path:
         by_path[name]["cluster"] = cluster[name]
         launches[name] += cluster[name]
-    t0 = time.perf_counter()
-    dryrun_phase(device)
-    phase_s["dry-run"] = time.perf_counter() - t0
+    dryrun_dir = os.path.join(ROOT, "build", "chip_smoke_dryrun")
+    try:
+        t0 = time.perf_counter()
+        perf_rows = dryrun_phase(device, dryrun_dir)
+        phase_s["dry-run"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        bench = bench_phase(kernel, dryrun_dir, perf_rows)
+        phase_s["benches"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(dryrun_dir, ignore_errors=True)
+    for name in by_path:
+        by_path[name]["benches"] = bench["benches"][name]
+        by_path[name]["kernels_bench"] = bench["kernels_bench"][name]
+        launches[name] += (bench["benches"][name]
+                           + bench["kernels_bench"][name])
     t0 = time.perf_counter()
     baseline = "fitmask_multibox_singlepass_baseline"
     by_path[baseline] = {"fitmask_bench": singlepass_path(kernel, device)}
@@ -2454,6 +2645,7 @@ def main() -> int:
     for name in ("flash_attention", "ssd_scan"):
         by_path[name] = {arch: n[name] for arch, n in served.items()
                          if n[name]}
+        by_path[name]["kernels_bench"] = bench["kernels_bench"][name]
         launches[name] = sum(by_path[name].values())
     print("# phase seconds: %s; total %.1f s" % (
         ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()),

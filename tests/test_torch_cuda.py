@@ -7,8 +7,10 @@ against their plain paths, the xlstm smoke model and one smoke train
 step on the card against the CPU, K4 and K5 refusing autograd, and
 meshes on the card (a process group of one rank, NCCL): ``shard_batch``
 and ``distribute_params`` on a 1x1 mesh, a smoke train step on it
-against the unmeshed step, and the RFold cluster on the ``cuda``
-engine training a 1-XPU job.
+against the unmeshed step, the RFold cluster on the ``cuda``
+engine training a 1-XPU job, and the benches: ``kernels_bench``'s
+kernel rows against its plain rows, ``reconfig_bench`` on ``cuda``
+against ``numpy``.
 Every test is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor ``repro``, so it also runs where only the
 port's requirements are installed:
@@ -1050,3 +1052,32 @@ def test_rfold_cluster_on_the_cuda_engine_trains_a_1_xpu_job(nccl1):
     assert losses == pytest.approx(host.run_steps(0, 2), rel=1e-4)
     cluster.finish(0)
     assert cluster.utilization() == 0.0
+
+
+def test_kernels_bench_sibling_rows_agree_with_their_plain_rows(card):
+    """The bench holds each kernel row against its plain row on the card
+    (K4 within FA_TOL in bf16, K5 within SSD_TOL in fp32, K3 bit-exact)
+    and raises on a mismatch; K5's 256-step chunk is refused."""
+    from benchmarks_torch import kernels_bench
+
+    rows = []
+    kernels_bench.main([], emit=rows.append)
+    by_name = {r.split(",")[0]: r.split(",")[1] for r in rows[1:]}
+    for name in ("attention_kernel_s256", "attention_kernel_s1024",
+                 "ssd_kernel_chunk64", "fitmask_kernel_64cubes"):
+        assert float(by_name[name]) > 0, name
+    assert by_name["ssd_kernel_chunk256"] == "refused"
+
+
+def test_reconfig_bench_on_cuda_gives_numpys_placements(card):
+    from benchmarks_torch import reconfig_bench
+
+    got = reconfig_bench.main(["--num-jobs", "12", "--out", ""])
+    want = reconfig_bench.main(["--num-jobs", "12", "--engine", "numpy",
+                                "--out", ""])
+    assert got["engine"] == "cuda" and want["engine"] == "numpy"
+    for cube, w in want["cube_sizes"].items():
+        for kind in ("batched", "naive"):
+            g = got["cube_sizes"][cube][kind]
+            assert (g["placements"], g["jcr"]) == \
+                (w[kind]["placements"], w[kind]["jcr"]), (cube, kind)
