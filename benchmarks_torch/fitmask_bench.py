@@ -5,7 +5,7 @@ through it), the occupancy counts (K2) and the fused bucketed launch
 (bool planes and counts in one launch).
 
     python3 benchmarks_torch/fitmask_bench.py [--src DIR] [--tree NAME]
-        [--variants] [--quick] [--out PATH]
+        [--variants] [--quick] [--iters N] [--out PATH]
 
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's). Pointed at another checkout (a ``git
@@ -20,7 +20,9 @@ The cases and their seeded grids are ``chip_smoke.py``'s kernel cases
 (K2 also its count-only cases). Each timed call is first held bit-exact
 against the plain version; a tree that refuses a grid prints
 ``refused``, one without the kernel ``absent``. ``ms`` is device time per
-launch, queued behind a spin kernel (``chip_smoke.device_ms``). Beside
+launch, queued behind a spin kernel (``chip_smoke.device_ms``), averaged
+over ``--iters`` launches (default 50; ``repro``'s flag, whose default
+of 3 suits its interpret mode). Beside
 each multi-box case it times the card's floor for writing the same int32
 output (``Tensor.zero_``), and once the floor for one launch
 (``chip_smoke.launch_floor_ms``). Prints the card's name and power
@@ -31,14 +33,17 @@ Last, the single-pass section: K1 (one launch for all K boxes) against
 the cells of ``repro``'s ``benchmarks/fitmask_bench.py`` (grids 8^3 and
 16^3, B 1, 8 and 64, K 1, 4, 8 and 16; its candidate boxes and grids of
 30 % occupancy from numpy's generator, seed 0). Each timed call is first
-held bit-exact against K1. Prints ``singlepass`` rows and the headline,
+held bit-exact against K1. For scale, as ``repro``'s ``run_sweep``, each
+cell also times the host ``numpy`` engine's ``fit_mask_multi`` on the same
+grids (``numpy_ms``, host clock, ``--iters`` calls after one warm-up),
+first held equal to K1. Prints ``singlepass`` rows and the headline,
 the multi-box speed-up at 16^3 with K >= 4. ``--quick`` runs only the
 single-pass section's headline cell (16^3, B 8, K 4), as repro's
 ``--quick``. The JSON (``--out``, default
 ``experiments/fitmask_bench_torch.json``; '' disables; never a committed
 BENCH_*.json) holds the card, the case rows (``cases``: kernel, case,
 box, plan, ms), the single-pass rows (``sweep``: grid, batch, k,
-multibox_ms, singlepass_ms, speedup) and the headline.
+multibox_ms, singlepass_ms, numpy_ms, speedup) and the headline.
 """
 from __future__ import annotations
 
@@ -75,31 +80,43 @@ def boxes_for(grid, k):
     return out[:k]
 
 
-def singlepass_sweep(kernel, device, timer, cells=SINGLEPASS_CELLS):
+def singlepass_sweep(kernel, device, timer, cells=SINGLEPASS_CELLS,
+                     iters=50):
     """K1 against the single-pass baseline on ``cells`` ((grid, B, K)),
-    each first held bit-exact against K1; ``timer(fn)`` gives ms. Prints
-    one row a cell and the headline; returns the rows."""
+    each first held bit-exact against K1; ``timer(fn)`` gives ms. The
+    host ``numpy`` engine's ``fit_mask_multi`` on the same grids is held
+    equal to K1 and timed over ``iters`` calls. Prints one row a cell and
+    the headline; returns the rows."""
     import numpy as np
+
+    from benchmarks_torch.kernels_bench import _time
+    from repro_torch.core import fitmask as np_engine
 
     rng = np.random.default_rng(0)
     rows = []
-    print("singlepass,grid,B,K,multibox_ms,singlepass_ms,speedup")
+    print("singlepass,grid,B,K,multibox_ms,singlepass_ms,numpy_ms,speedup")
     for grid, bsz, k in cells:
-        occ = torch.from_numpy(rng.uniform(size=(bsz,) + grid) < 0.3).to(
-            device)
+        occ_np = rng.uniform(size=(bsz,) + grid) < 0.3
+        occ = torch.from_numpy(occ_np).to(device)
         boxes = boxes_for(grid, k)
         multi = lambda: kernel.fitmask_multibox(occ, boxes)  # noqa: E731
         single = lambda: kernel.fitmask_multibox_singlepass_baseline(  # noqa: E731
             occ, boxes)
-        if not torch.equal(single(), multi()):
+        numpy = lambda: np_engine.fit_mask_multi(occ_np, boxes)  # noqa: E731
+        want = multi()
+        if not torch.equal(single(), want):
             raise AssertionError(f"single-pass baseline at {grid}, B {bsz}, "
                                  f"K {k}: differs from K1")
+        if not np.array_equal(numpy() != 0, want.cpu().numpy()):
+            raise AssertionError(f"numpy fit_mask_multi at {grid}, B {bsz}, "
+                                 f"K {k}: differs from K1")
         m_ms, s_ms = timer(multi), timer(single)
+        n_ms = _time(numpy, iters=iters, warmup=1) / 1e3
         rows.append(dict(grid="x".join(map(str, grid)), batch=bsz, k=k,
                          multibox_ms=m_ms, singlepass_ms=s_ms,
-                         speedup=s_ms / m_ms))
-        print("singlepass,%s,%d,%d,%s,%s,%s" % (
-            rows[-1]["grid"], bsz, k, m_ms, s_ms, rows[-1]["speedup"]),
+                         numpy_ms=n_ms, speedup=s_ms / m_ms))
+        print("singlepass,%s,%d,%d,%s,%s,%s,%s" % (
+            rows[-1]["grid"], bsz, k, m_ms, s_ms, n_ms, rows[-1]["speedup"]),
             flush=True)
     head = [r["speedup"] for r in rows if r["grid"] == "16x16x16"
             and r["k"] >= 4]
@@ -117,6 +134,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="the single-pass headline cell only (16^3, B 8, "
                          "K 4)")
+    ap.add_argument("--iters", type=int, default=50,
+                    help="timed calls a measurement (device and host)")
     ap.add_argument("--out", default=os.path.join(
         "experiments", "fitmask_bench_torch.json"),
         help="JSON output ('' disables); never a committed BENCH_*.json")
@@ -146,7 +165,7 @@ def main(argv=None) -> int:
             if not cs.same(got, plain()):
                 raise AssertionError(f"{args.tree} {name} on {label} "
                                      f"({plan}): differs from plain")
-            ms = cs.device_ms(fn, cs.time_ms(fn))
+            ms = cs.device_ms(fn, cs.time_ms(fn, args.iters), args.iters)
         box = "" if box is None else "x".join(map(str, box))
         cases.append(dict(kernel=name, case=label, box=box, plan=plan,
                           ms=ms))
@@ -161,7 +180,8 @@ def main(argv=None) -> int:
     cases = []
     out = {"tree": args.tree, "card": card, "cases": cases, "sweep": []}
     if args.quick:
-        return _finish(kernel, device, args.out, out, [QUICK_CELL])
+        return _finish(kernel, device, args.out, out, [QUICK_CELL],
+                       args.iters)
     print(f"fitmask_bench,{args.tree},launch floor,,,,{cs.launch_floor_ms()}")
     bucketed = getattr(kernel, "fitmask_multibox_bucketed", None)
     for label, bsz, dims, occ in cs.count_inputs(device):
@@ -192,7 +212,9 @@ def main(argv=None) -> int:
             if name == "fitmask_multibox":     # the same bytes, written alone
                 fill = torch.empty((bsz, len(boxes), *dims),
                                    dtype=torch.int32, device=device)
-                ms = cs.device_ms(fill.zero_, cs.time_ms(fill.zero_))
+                ms = cs.device_ms(fill.zero_,
+                                  cs.time_ms(fill.zero_, args.iters),
+                                  args.iters)
                 print(f"fitmask_bench,{args.tree},write floor,{label},,"
                       f"zero_,{ms}")
             if not args.variants:
@@ -208,16 +230,18 @@ def main(argv=None) -> int:
     if not hasattr(kernel, "fitmask_multibox_singlepass_baseline"):
         print(f"fitmask_bench,{args.tree},singlepass,,,,absent")
         return _write(args.out, out)
-    return _finish(kernel, device, args.out, out, SINGLEPASS_CELLS)
+    return _finish(kernel, device, args.out, out, SINGLEPASS_CELLS,
+                   args.iters)
 
 
-def _finish(kernel, device, path, out, cells) -> int:
+def _finish(kernel, device, path, out, cells, iters) -> int:
     """The single-pass section on ``cells`` into ``out``, then the JSON."""
     import chip_smoke as cs
 
-    rows = singlepass_sweep(kernel, device,
-                            lambda fn: cs.device_ms(fn, cs.time_ms(fn)),
-                            cells=cells)
+    rows = singlepass_sweep(
+        kernel, device,
+        lambda fn: cs.device_ms(fn, cs.time_ms(fn, iters), iters),
+        cells=cells, iters=iters)
     out["sweep"] = rows
     head = [r["speedup"] for r in rows if r["grid"] == "16x16x16"
             and r["k"] >= 4]

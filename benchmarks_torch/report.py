@@ -170,16 +170,18 @@ def paper_table(path: str) -> str:
 def fitmask_table(path: str) -> str:
     """Single-pass sweep of ``benchmarks_torch/fitmask_bench.py``: one
     multi-box launch (K1) for K boxes vs K single-box launches (K3),
-    device time on the card."""
+    device time on the card, with the host numpy engine for scale."""
     with open(path) as f:
         bench = json.load(f)
-    lines = ["| grid | batch | K | K1 ms | K x K3 ms | speedup |",
-             "|---|---|---|---|---|---|"]
+    lines = ["| grid | batch | K | K1 ms | K x K3 ms | speedup | numpy ms |",
+             "|---|---|---|---|---|---|---|"]
     for r in bench.get("sweep", []):
+        numpy = r.get("numpy_ms")
         lines.append(
             f"| {r['grid']} | {r['batch']} | {r['k']} | "
             f"{r['multibox_ms']:.4f} | {r['singlepass_ms']:.4f} | "
-            f"{r['speedup']:.2f}x |")
+            f"{r['speedup']:.2f}x | "
+            f"{'not measured' if numpy is None else f'{numpy:.4f}'} |")
     head = bench.get("headline", {})
     if head:
         lines.append(

@@ -58,7 +58,13 @@
    > 0, with no retry, failover or canary check. Then
    ``benchmarks_torch/chaos_bench.py``'s matrix (5 scenarios x 5
    policies at 512 XPUs, 120 jobs, each cell twice) on ``cuda`` against
-   ``numpy``: identical cells, deterministic, headline held.
+   ``numpy``: identical cells, deterministic, headline held. Last, the
+   kill arm: the eight configurations, 1 run x 200 jobs (seed0 100),
+   under node_churn with fail-stop faults (``sim_kw={"fault_mode":
+   "kill"}``) as ``cuda`` fleets, ``cuda`` per task and ``numpy`` per
+   task: records with chaos blocks identical, a job killed, every victim
+   killed (none preempted or migrated), ``num_dropped >= killed``, and
+   the fused, K1 and K2 launches > 0 (``scenario_kill`` line).
 7. Service main path: ``benchmarks_torch/crash_loop.py``'s op stream
    (the node_churn trace's submits, a ``done`` after every 3rd submit,
    the scenario's fault/repair schedule; 200 jobs, seed 17) at 4096
@@ -974,7 +980,51 @@ def scenario_phase(kernel, device):
           "numpy_per_task_last_s,chaos_bench_cuda_s,chaos_bench_numpy_s")
     print(f"scenario_walls,{fleet_s},{per_task_s},{numpy_s},{numpy_again_s},"
           f"{bench_cuda_s},{bench_numpy_s}")
-    return launches
+
+    # The kill arm: node_churn with fail-stop faults, the eval runner's
+    # sim_kw path, as cuda fleets, cuda per task and numpy per task.
+    t_kill = time.perf_counter()
+    kill_tasks = make_tasks(CONFIGS, SCENARIO_RUNS, SCENARIO_JOBS, LOAD,
+                            FLEET_SEED0, sim_kw={"fault_mode": "kill"},
+                            scenario="node_churn")
+    kill_want = run(seq, kill_tasks)[0]
+    kill_fleet, _, kill_run, kill_fleet_n = run(
+        EngineConfig("cuda", device=device), kill_tasks)
+    kill_per_task, _, _, kill_per_task_n = run(
+        EngineConfig("cuda", device=device, fleet_size=0), kill_tasks)
+    for name, recs in (("cuda fleet", kill_fleet),
+                       ("cuda per task", kill_per_task)):
+        if strip_timing(recs) != strip_timing(kill_want):
+            raise AssertionError(f"kill arm, {name}: records differ from "
+                                 "per-task numpy's")
+    killed = dropped = 0
+    for r in kill_want:
+        ch = r["chaos"]
+        if ch["victims"] != ch["killed"] or ch["preempted"] \
+                or ch["migrated"] or \
+                r["summary"]["num_dropped"] < ch["killed"]:
+            raise AssertionError(f"kill arm, {r['label']}: {ch}, "
+                                 f"{r['summary']['num_dropped']} dropped")
+        killed += ch["killed"]
+        dropped += r["summary"]["num_dropped"]
+    b = kill_run.last_stats["fleet"]["broker"]
+    if b["engine_failovers"] or b["canary_checks"] or b["engine_retries"]:
+        raise AssertionError(f"the kill arm's fleet failed over: {b}")
+    kill_n = {k: kill_fleet_n[k] + kill_per_task_n[k] for k in kill_fleet_n}
+    kill_s = time.perf_counter() - t_kill
+    print("scenario_kill,records_identical,killed,dropped,fused_launches,"
+          "k1_launches,k2_launches,k3_launches,wall_s")
+    print(f"scenario_kill,True,{killed},{dropped},"
+          f"{kill_n['fitmask_multibox_bucketed']},"
+          f"{kill_n['fitmask_multibox']},{kill_n['occupancy_counts']},"
+          f"{kill_n['fitmask_batched']},{kill_s}")
+    if killed == 0:
+        raise AssertionError("the kill arm killed no job")
+    for name in ("fitmask_multibox_bucketed", "fitmask_multibox",
+                 "occupancy_counts"):
+        if kill_n[name] == 0:
+            raise AssertionError(f"the kill arm never launched {name}")
+    return {k: launches[k] + kill_n[k] for k in launches}
 
 
 def replay(ops, policy, kw, device, mask_client=None):

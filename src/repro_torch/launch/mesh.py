@@ -15,7 +15,6 @@ constant) so importing this module touches no process group.
 from __future__ import annotations
 
 import os
-import socket
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -30,16 +29,12 @@ def device_type(device=None) -> str:
     return resolve_device(device).type
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def ensure_process_group(device=None) -> bool:
     """Join the process group ``torchrun`` describes (``RANK``,
     ``WORLD_SIZE``, ``MASTER_ADDR``/``MASTER_PORT`` in the environment),
-    or start one of world size 1 on a free localhost port. Nothing
+    or start one of world size 1 whose store listens on a localhost
+    port the OS picks as it binds (no window in which another socket can
+    take a port found free beforehand). Nothing
     happens if a group is up. Returns True when it started one: the
     caller then destroys it (``dist.destroy_process_group()``).
 
@@ -57,9 +52,8 @@ def ensure_process_group(device=None) -> bool:
     else:
         if device_type(device) == "cuda":
             torch.cuda.set_device(resolve_device(device).index or 0)
-        dist.init_process_group(
-            backend, init_method=f"tcp://localhost:{_free_port()}",
-            rank=0, world_size=1)
+        store = dist.TCPStore("localhost", 0, world_size=1, is_master=True)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1)
     return True
 
 

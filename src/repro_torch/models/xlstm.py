@@ -263,3 +263,7 @@ def slstm_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y = _rms(y, p["norm_scale"])
     out = y @ p["w_out"].to(x.dtype)
     return constrain(out, "batch", "seq", "embed"), new_state
+
+
+def is_slstm_layer(cfg: ModelConfig, layer_idx: int) -> bool:
+    return cfg.slstm_every > 0 and layer_idx % cfg.slstm_every == 0

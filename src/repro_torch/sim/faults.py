@@ -21,7 +21,7 @@ orchestrator/evaluator pair:
   eviction-before-fault is enforced, never assumed.
 
 * :class:`ChaosObserver` — records degradation and recovery per run:
-  utilization dip depth, re-queue depth, time-to-recover, jobs preempted
+  utilization dip depth, re-queue depth, time-to-recover, jobs killed
   vs migrated. Pure observation: it never mutates simulator state, so
   attaching one cannot change a schedule (parity-tested).
 
@@ -34,6 +34,7 @@ Event flow (see DESIGN.md §Chaos layer for the full diagram)::
         Simulator --replan victims--> policy.try_place
             placed   -> migrated   (new completion, work preserved)
             unplaced -> preempted  (re-queued at the head)
+            infeasible -> killed   (dropped)
         ChaosObserver <-- on_fault/on_repair/on_preempt/... hooks
 """
 from __future__ import annotations
@@ -238,8 +239,7 @@ class ChaosObserver:
     victims: int = 0
     preempted: int = 0
     migrated: int = 0
-    killed: int = 0   # always 0 (victims are replanned, never dropped);
-                      # kept so records equal the reference's
+    killed: int = 0
     first_fault_t: Optional[float] = None
     last_fault_t: Optional[float] = None
     last_repair_t: Optional[float] = None
@@ -265,6 +265,9 @@ class ChaosObserver:
 
     def on_migrate(self, t: float, job) -> None:
         self.migrated += 1
+
+    def on_kill(self, t: float, job) -> None:
+        self.killed += 1
 
     def on_sample(self, t: float, util: float, queue_depth: int) -> None:
         self._samples.append((t, util, queue_depth))

@@ -24,6 +24,7 @@ class Job:
     start: Optional[float] = None
     finish: Optional[float] = None
     dropped: bool = False
+    killed: bool = False      # evicted with no feasible home (dropped)
     slowdown: float = 1.0
     placement_meta: dict = field(default_factory=dict)
     # -- chaos bookkeeping (fault injection / preemption) --

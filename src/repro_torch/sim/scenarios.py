@@ -103,7 +103,8 @@ def fault_schedule(scenario, model, jobs, seed: int) -> list:
 def run_scenario(scenario, policy: str = "rfold",
                  policy_kw: Optional[dict] = None,
                  num_jobs: int = 120, seed: int = 0,
-                 trace_kw: Optional[dict] = None) -> dict:
+                 trace_kw: Optional[dict] = None,
+                 keep_result: bool = False) -> dict:
     """Run one (scenario, policy) cell and return its deterministic
     record: trace/fault provenance, the paper summary metrics, and the
     chaos observer's degradation/recovery block.
@@ -111,7 +112,8 @@ def run_scenario(scenario, policy: str = "rfold",
     ``policy_kw``/``trace_kw`` size the cluster and trace (CI uses 512
     XPUs, the paper eval 4096); scenario-level overrides win over the
     caller's ``trace_kw`` for the knobs the scenario *is* (burstiness,
-    correlation, priorities)."""
+    correlation, priorities). ``keep_result=True`` attaches the raw
+    :class:`SimResult` under the non-JSON key ``"_result"``."""
     sc: Scenario = (SCENARIOS[scenario] if isinstance(scenario, str)
                     else scenario)
     cfg = TraceConfig(**{"num_jobs": num_jobs, "seed": seed,
@@ -135,4 +137,6 @@ def run_scenario(scenario, policy: str = "rfold",
         "summary": summarize(result),
         "chaos": result.chaos,
     }
+    if keep_result:
+        record["_result"] = result
     return record

@@ -17,7 +17,8 @@ rides the same event heap (``CHAOS`` events). A fault on resources
 hosting jobs evicts the victims *before* the model transitions (the
 models enforce this), preserves their remaining work (checkpoint-resume
 assumption), and replans each through the policy: re-placed now →
-**migrated**; re-queued at the head → **preempted**.
+**migrated**; re-queued at the head → **preempted**; in
+``fault_mode="kill"`` victims are fail-stopped instead (**killed**).
 ``priority_preemption`` adds multi-tenant semantics: the queue orders
 by priority and a blocked high-priority head may evict lower-priority
 running jobs. All of it is pay-for-play — with no faults, no observer
@@ -72,15 +73,19 @@ class Simulator:
     ``faults`` is a time-sorted :class:`~repro_torch.sim.faults.FaultEvent`
     sequence (see :class:`~repro_torch.sim.faults.FaultGenerator`);
     ``observer`` a :class:`~repro_torch.sim.faults.ChaosObserver` (or
-    anything with its hooks); fault victims keep their remaining work
-    and are replanned; ``priority_preemption`` orders the queue by ``Job.priority`` and
+    anything with its hooks); ``fault_mode`` picks eviction semantics
+    (``"migrate"``: work-preserving replan; ``"kill"``: fail-stop);
+    ``priority_preemption`` orders the queue by ``Job.priority`` and
     lets a blocked head evict lower-priority running jobs."""
 
     def __init__(self, policy: PlacementPolicy, jobs: Sequence[Job],
                  broken_ring_slowdown: float = 1.17,
                  backfill: bool = False, gated: bool = True,
                  faults: Sequence = (), observer=None,
+                 fault_mode: str = "migrate",
                  priority_preemption: bool = False):
+        if fault_mode not in ("migrate", "kill"):
+            raise ValueError(f"unknown fault_mode {fault_mode!r}")
         self.policy = policy
         self.jobs = sorted(jobs, key=lambda j: j.arrival)
         self.broken_ring_slowdown = broken_ring_slowdown
@@ -99,6 +104,7 @@ class Simulator:
         self.gated = gated
         self.faults = list(faults)
         self.observer = observer
+        self.fault_mode = fault_mode
         self.priority_preemption = bool(priority_preemption)
         self._injector = None
         if self.faults:
@@ -180,6 +186,12 @@ class Simulator:
             self.observer.on_fault(t, ev, [j.job_id for j in victims])
         requeue: List[Job] = []
         for job in victims:
+            if self.fault_mode == "kill":
+                job.dropped = True
+                job.killed = True
+                if self.observer is not None:
+                    self.observer.on_kill(t, job)
+                continue
             placement = self.policy.try_place(job.job_id, job.shape)
             if placement is not None:
                 job.migrations += 1

@@ -124,6 +124,35 @@ def test_kernels_bench_alloc_rows_on_the_cuda_engine_on_cpu():
         [r.split(",")[::2] for r in want]
 
 
+def test_fitmask_singlepass_rows_carry_numpy_ms(capsys):
+    """The single-pass section on the CPU (the wrappers take the plain
+    versions there) at two of repro's cells: each row has repro's grid,
+    batch and K, the kernels' times from ``timer`` and the numpy
+    engine's host time over ``iters`` calls, each held equal to K1."""
+    from benchmarks import fitmask_bench as ref_fitmask
+    from benchmarks_torch import fitmask_bench
+    from repro_torch.kernels.fitmask import kernel
+
+    cells = [((8, 8, 8), 1, 4), ((16, 16, 16), 8, 4)]
+    timed = []
+    rows = fitmask_bench.singlepass_sweep(
+        kernel, torch.device("cpu"), lambda fn: timed.append(fn) or 0.5,
+        cells=cells, iters=2)
+    assert len(timed) == 2 * len(cells)
+    assert [(r["grid"], r["batch"], r["k"]) for r in rows] == \
+        [("8x8x8", 1, 4), ("16x16x16", 8, 4)]
+    for r, (grid, _, k) in zip(rows, cells):
+        assert set(r) == {"grid", "batch", "k", "multibox_ms",
+                          "singlepass_ms", "numpy_ms", "speedup"}
+        assert r["multibox_ms"] == r["singlepass_ms"] == 0.5
+        assert r["speedup"] == 1.0 and r["numpy_ms"] > 0
+        assert fitmask_bench.boxes_for(grid, k) == \
+            list(ref_fitmask.boxes_for(grid, k))
+    out = capsys.readouterr().out
+    assert "singlepass,grid,B,K,multibox_ms,singlepass_ms,numpy_ms,speedup" \
+        in out and "# headline:" in out
+
+
 def test_benches_refuse_a_bench_snapshot_and_a_missing_card(capsys):
     for mod in (allocator_bench, reconfig_bench, beyond):
         with pytest.raises(SystemExit):

@@ -1,7 +1,7 @@
 """Tests of the port that need a CUDA card: the hand-written kernels
 against their plain PyTorch versions on the card, the placement loop
-the chaos scenarios and the allocator daemon through the ``cuda``
-engine against the host ``numpy`` engine, the smoke models'
+the chaos scenarios (fail-stop kill mode too) and the allocator daemon
+through the ``cuda`` engine against the host ``numpy`` engine, the smoke models'
 forwards (zamba2, the dense-stack and MoE families) through the kernels
 against their plain paths, the xlstm smoke model and one smoke train
 step on the card against the CPU, K4 and K5 refusing autograd, and
@@ -449,6 +449,41 @@ def test_scenarios_on_cuda_match_numpy(card):
         assert got["num_faults"] > 0 and got["chaos"]["faults"] > 0
         assert counts["fitmask_multibox"] > 0, (scenario, counts)
         assert counts["occupancy_counts"] > 0, (scenario, counts)
+
+
+def test_kill_mode_on_cuda_matches_numpy(card):
+    """``fault_mode="kill"`` under node_churn on RFold 4^3 at 512 XPUs,
+    through the eval runner's ``run_task``: the cuda engine's records
+    equal the numpy engine's, every victim killed, K1 and K2 launched."""
+    import json
+
+    from repro_torch.core.engineconfig import EngineConfig
+    from repro_torch.eval import make_tasks, run_task
+
+    tasks = make_tasks([("RFold (4^3)", "rfold",
+                         dict(num_xpus=512, cube_n=4))],
+                       runs=2, num_jobs=120, load=1.5, seed0=100,
+                       trace_kw=dict(cluster_xpus=512, size_max=512),
+                       sim_kw={"fault_mode": "kill"}, scenario="node_churn")
+
+    def strip(recs):
+        return json.dumps([{k: v for k, v in r.items() if k != "sim_s"}
+                           for r in recs], sort_keys=True)
+
+    want = [run_task(t, engine="numpy") for t in tasks]
+    tk.reset_launch_counts()
+    got = [run_task(t, engine=EngineConfig("cuda", device=card))
+           for t in tasks]
+    counts = tk.launch_counts()
+    assert strip(got) == strip(want)
+    for rec in got:
+        ch = rec["chaos"]
+        assert ch["victims"] == ch["killed"]
+        assert ch["preempted"] == ch["migrated"] == 0
+        assert rec["summary"]["num_dropped"] >= ch["killed"]
+    assert sum(r["chaos"]["killed"] for r in got) > 0
+    assert counts["fitmask_multibox"] > 0, counts
+    assert counts["occupancy_counts"] > 0, counts
 
 
 def test_service_daemon_on_cuda_launches_k1(card):

@@ -193,6 +193,41 @@ def test_scenario_records_identical_to_reference(scenario):
     assert broker["engine_failovers"] == 0 and broker["batched_calls"] > 0
 
 
+KILL_CONFIGS = [
+    ("FirstFit (8^3)", "firstfit", dict(dims=(8, 8, 8))),
+    ("Folding (8^3)", "folding", dict(dims=(8, 8, 8))),
+    ("Reconfig (4^3)", "reconfig", dict(num_xpus=512, cube_n=4)),
+    ("RFold (4^3)", "rfold", dict(num_xpus=512, cube_n=4)),
+]
+
+
+def test_kill_mode_records_identical_to_reference():
+    """``sim_kw={"fault_mode": "kill"}`` under ``node_churn`` at 512
+    XPUs, 2 runs x 60 jobs: ``run_task`` on ``numpy`` and ``EvalRunner``
+    as fleets (``cuda`` on the CPU) each give
+    ``repro.eval.runner.run_task``'s records, ``sim_s`` aside; every
+    victim is killed and counted as dropped."""
+    from repro.eval.runner import run_task as ref_run_task
+    kw = dict(runs=2, num_jobs=60, load=1.5, seed0=100,
+              sim_kw={"fault_mode": "kill"}, scenario="node_churn")
+    want = [ref_run_task(t) for t in ref_make_tasks(KILL_CONFIGS, **kw)]
+    tasks = make_tasks(KILL_CONFIGS, **kw)
+    assert [t.fingerprint() for t in tasks] == \
+        [r["fingerprint"] for r in want]
+    direct = [run_task(t, engine=NUMPY) for t in tasks]
+    assert _strip_timing(direct) == _strip_timing(want)
+    fleet = EvalRunner(workers=0, engine=EngineConfig("cuda", device="cpu"))
+    assert _strip_timing(fleet.run(tasks)) == _strip_timing(want)
+    broker = fleet.last_stats["fleet"]["broker"]
+    assert broker["engine_failovers"] == 0 and broker["batched_calls"] > 0
+    for rec in direct:
+        ch = rec["chaos"]
+        assert ch["victims"] == ch["killed"]
+        assert ch["preempted"] == ch["migrated"] == 0
+        assert rec["summary"]["num_dropped"] >= ch["killed"]
+    assert sum(r["chaos"]["killed"] for r in direct) > 0
+
+
 # ----------------------------------------------------- seed derivation
 def test_derive_seed_depends_only_on_run_idx():
     a = [derive_seed(100, r) for r in range(8)]

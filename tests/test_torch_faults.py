@@ -10,8 +10,7 @@ placements, fault timelines, schedules and chaos records). Tests that
 place jobs run on the ``numpy`` engine and on the tensor engines on the
 CPU (``cuda`` and ``torch`` with ``device="cpu"``), whose masks are
 cached per occupancy epoch: a fault or repair that misses an epoch bump
-shows only there. The reference's ``fault_mode="kill"`` test has no
-namesake: the port always replans fault victims and has no kill mode.
+shows only there.
 """
 import json
 
@@ -492,6 +491,36 @@ def test_fault_on_hosting_node_preempts_or_migrates_never_corrupts(
         if j.finish is not None and j.migrations + j.preemptions == 0:
             assert j.finish == pytest.approx(
                 j.start + j.duration * j.slowdown)
+
+
+@engines
+def test_fault_mode_kill_fail_stops_victims(engine):
+    """``fault_mode="kill"`` fail-stops every victim: dropped, never
+    replanned, with the reference's schedule, flags and chaos record."""
+    sim, ref, _ = _chaos_sims(
+        engine, observers=True, fault_mode="kill",
+        fault_kw=dict(seed=1, num_node_faults=6, nodes_per_fault=16))
+    result, want = sim.run(), ref.run()
+    assert schedule(result) == schedule(want)
+    assert [(j.job_id, j.dropped, j.killed) for j in result.jobs] == \
+        [(j.job_id, j.dropped, j.killed) for j in want.jobs]
+    obs = sim.observer
+    model(sim.policy).check_invariants()
+    assert obs.killed > 0
+    assert obs.victims == obs.killed
+    assert obs.preempted == obs.migrated == 0
+    killed = [j for j in result.jobs if j.killed]
+    assert len(killed) == obs.killed
+    assert all(j.dropped and j.finish is None for j in killed)
+    assert len(result.dropped) >= obs.killed
+
+
+@pytest.mark.parametrize("sim_cls", [Simulator, RefSimulator],
+                         ids=["port", "reference"])
+def test_unknown_fault_mode_raises(sim_cls):
+    pol = make_policy("rfold", engine="numpy", **SMALL)
+    with pytest.raises(ValueError, match="unknown fault_mode 'bogus'"):
+        sim_cls(pol, [], fault_mode="bogus")
 
 
 @pytest.mark.parametrize("policy,policy_kw", [

@@ -88,12 +88,16 @@ def test_paper_table_equals_the_reference(tmp_path):
 def test_fitmask_and_fleet_tables_read_the_ports_keys(tmp_path):
     fit = {"card": "NVIDIA H100 80GB HBM3, 700.00 W", "cases": [],
            "sweep": [dict(grid="16x16x16", batch=8, k=4, multibox_ms=0.004,
-                          singlepass_ms=0.016, speedup=4.0)],
+                          singlepass_ms=0.016, numpy_ms=1.25, speedup=4.0),
+                     dict(grid="8x8x8", batch=1, k=1, multibox_ms=0.003,
+                          singlepass_ms=0.003, speedup=1.0)],
            "headline": {"criterion": "c", "min_speedup": 4.0,
                         "max_speedup": 4.0, "pass": True}}
     (tmp_path / "fit.json").write_text(json.dumps(fit))
     text = report.fitmask_table(str(tmp_path / "fit.json"))
-    assert "| 16x16x16 | 8 | 4 | 0.0040 | 0.0160 | 4.00x |" in text
+    assert "| 16x16x16 | 8 | 4 | 0.0040 | 0.0160 | 4.00x | 1.2500 |" in text
+    assert "| 8x8x8 | 1 | 1 | 0.0030 | 0.0030 | 1.00x | not measured |" \
+        in text
     assert "pass=True" in text and "700.00 W" in text
     with open(os.path.join(ROOT, "BENCH_fleet.json")) as f:
         fleet = json.load(f)

@@ -203,6 +203,32 @@ def test_policies_comparable_within_scenario():
     assert a["chaos"]["faults"] == b["chaos"]["faults"]
 
 
+@pytest.mark.parametrize("engine", sorted(ENGINES))
+def test_keep_result_returns_full_simulation(engine):
+    """``keep_result=True`` adds the run's ``SimResult`` under
+    ``"_result"`` and leaves the rest of the record as it was, and as
+    the reference's is."""
+    kw = dict(policy_kw=dict(num_xpus=512, cube_n=4))
+    rec = _record("node_churn", engine, keep_result=True, **kw)
+    result = rec.pop("_result")
+    assert dumps(rec) == dumps(_record("node_churn", engine, **kw))
+    assert result.chaos is not None and result.chaos == rec["chaos"]
+    assert len(result.jobs) == rec["num_jobs"] == 60
+    evicted = sum(j.preemptions + j.migrations for j in result.jobs)
+    assert evicted >= rec["chaos"]["victims"] > 0
+    want = ref_scenarios.run_scenario(
+        "node_churn", policy="rfold",
+        policy_kw=dict(kw["policy_kw"], engine="numpy"), num_jobs=60,
+        seed=0, keep_result=True)
+    want_result = want.pop("_result")
+    assert dumps(rec) == dumps(want)
+    assert [(j.job_id, j.start, j.finish, j.dropped, j.killed,
+             j.preemptions, j.migrations) for j in result.jobs] == \
+        [(j.job_id, j.start, j.finish, j.dropped, j.killed,
+          j.preemptions, j.migrations) for j in want_result.jobs]
+    assert result.utilization_samples == want_result.utilization_samples
+
+
 def test_default_engine_raises_without_a_card(monkeypatch):
     """No engine asked for means the card; with none, a scenario run
     raises instead of carrying on on the CPU."""

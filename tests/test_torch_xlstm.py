@@ -97,6 +97,20 @@ def test_configs_match_repro(over):
         "xlstm_group", 6, True, ("slstm",) + ("mlstm",) * 7)]
 
 
+@pytest.mark.parametrize("every", [0, 2, 8])
+def test_is_slstm_layer_matches_repro(every):
+    """``is_slstm_layer`` picks repro's layers, and the full config's
+    pick is the first layer of each group of its layer plan."""
+    port = dataclasses.replace(get_config(ARCH), slstm_every=every)
+    ref = dataclasses.replace(jget_config(ARCH), slstm_every=every)
+    picks = [tx.is_slstm_layer(port, i) for i in range(port.n_layers)]
+    assert picks == [jx.is_slstm_layer(ref, i) for i in range(ref.n_layers)]
+    if every == 8:
+        seg, = tlm.layer_plan(port)
+        kinds = seg.group * seg.count
+        assert picks == [k == "slstm" for k in kinds]
+
+
 def test_layer_plan_needs_whole_groups():
     with pytest.raises(ValueError, match="slstm_every"):
         tlm.layer_plan(smoke_variant(get_config(ARCH), n_layers=3))
