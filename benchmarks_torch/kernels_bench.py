@@ -15,8 +15,9 @@ row's output (K4 within chip_smoke's bf16 ``FA_TOL``, K5 within its fp32
 ``SSD_TOL``, the fitmask kernel bit-exact) and raises on a mismatch. K5
 refuses a chunk whose output block would keep more than chunk x P = 8192
 values in registers: at P = 64 that is chunk 256, whose row says
-``refused`` once the refusal is checked. On the CPU no sibling row
-appears.
+``refused`` once the refusal is checked. Each ``bench_*`` section
+runs on the card unless given ``device="cpu"``, and raises
+``RuntimeError`` without one; on the CPU no sibling row appears.
 
 The plain rows run on ``--device`` (default: the card, or the CPU
 under ``--engine numpy``); the allocator and simulator rows run on
@@ -99,9 +100,10 @@ def _check_close(name: str, got, want, tol) -> None:
 def bench_flash_attention(emit=print, device=None) -> None:
     import torch
 
+    from repro_torch.device import resolve_device
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     rng = np.random.default_rng(0)
     for s in (256, 1024):
         q, k, v = (torch.from_numpy(rng.normal(size=(1, s, h, 64))).to(
@@ -122,9 +124,10 @@ def bench_flash_attention(emit=print, device=None) -> None:
 def bench_ssd(emit=print, device=None) -> None:
     import torch
 
+    from repro_torch.device import resolve_device
     from repro_torch.kernels.ssd_scan import kernel as ssd
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     rng = np.random.default_rng(1)
     B, S, H, P, N = 1, 2048, 8, 64, 64
     f32 = dict(device=device, dtype=torch.float32)
@@ -165,9 +168,10 @@ def bench_fitmask(emit=print, device=None) -> None:
     import torch
 
     from repro_torch.core import fitmask as np_engine
+    from repro_torch.device import resolve_device
     from repro_torch.kernels.fitmask import kernel as fit_kernel
     from repro_torch.kernels.fitmask import ref as fit_ref
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     rng = np.random.default_rng(2)
     occ = rng.uniform(size=(16, 16, 16)) < 0.3
     us = _time(lambda: np_engine.fit_mask(occ, (4, 4, 4)), iters=50)

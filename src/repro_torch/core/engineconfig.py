@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import os
 import warnings
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Optional, Union
 
 ENGINE_ENV = "REPRO_TORCH_FITMASK_ENGINE"
@@ -115,21 +115,23 @@ class EngineConfig:
         Registry name (``cuda``/``torch``/``numpy``/``ref`` or an
         alias). ``None`` defers to the process default / deprecated
         env var / ``cuda``.
-    ``device``
-        ``torch.device`` (or its string) the tensor engines run on.
-        ``None`` means ``cuda``. Ignored by the ``numpy`` host engine.
     ``fleet_size`` / ``quorum`` / ``timeout`` / ``max_inflight``
         How the fleet layer drives the backend: simulators per broker
         and the broker's flush policy. ``"auto"`` defers to the
         engine-aware policy in ``repro_torch.sim.fleet.Fleet``.
+    ``device``
+        Keyword-only, so the other fields bind by position as in
+        ``repro``: the ``torch.device`` (or its string) the tensor
+        engines run on. ``None`` means ``cuda``. Ignored by the
+        ``numpy`` host engine.
     """
 
     engine: Optional[str] = None
-    device: Optional[object] = None
     fleet_size: Union[str, int, None] = "auto"
     quorum: Union[str, float, None] = "auto"
     timeout: Union[str, float, None] = "auto"
     max_inflight: Optional[int] = None
+    device: Optional[object] = field(default=None, kw_only=True)
 
     @classmethod
     def coerce(cls, value) -> "EngineConfig":

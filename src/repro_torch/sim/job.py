@@ -24,12 +24,12 @@ class Job:
     start: Optional[float] = None
     finish: Optional[float] = None
     dropped: bool = False
-    killed: bool = False      # evicted with no feasible home (dropped)
     slowdown: float = 1.0
     placement_meta: dict = field(default_factory=dict)
     # -- chaos bookkeeping (fault injection / preemption) --
     preemptions: int = 0      # evicted and re-queued
     migrations: int = 0       # evicted and immediately re-placed
+    killed: bool = False      # evicted with no feasible home (dropped)
     remaining: Optional[float] = None  # ideal work left after eviction
 
     @property

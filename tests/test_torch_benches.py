@@ -115,6 +115,29 @@ def test_kernels_bench_rows_carry_the_references_names(monkeypatch):
     assert not any("_kernel_" in r for r in got)
 
 
+@pytest.mark.parametrize("section", ["bench_fitmask", "bench_flash_attention",
+                                     "bench_ssd"])
+def test_kernels_bench_sections_run_on_the_card_unless_asked(monkeypatch,
+                                                             section):
+    """A bare section asks for the card and raises without one, emitting
+    nothing; ``device="cpu"`` gives the plain rows under the reference's
+    names."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rows = []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(kernels_bench, section)(rows.append)
+    assert rows == []
+    monkeypatch.setattr(kernels_bench, "_time",
+                        lambda fn, iters=5, warmup=2: (fn(), 1.0)[1])
+    monkeypatch.setattr(ref_kernels, "_time",
+                        lambda fn, iters=5, warmup=2: 1.0)
+    want = []
+    getattr(kernels_bench, section)(rows.append, "cpu")
+    getattr(ref_kernels, section)(want.append)
+    assert [r.split(",")[0] for r in rows] == \
+        [r.split(",")[0] for r in want]
+
+
 def test_kernels_bench_alloc_rows_on_the_cuda_engine_on_cpu():
     got, want = [], []
     kernels_bench.bench_allocator(got.append,

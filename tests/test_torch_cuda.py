@@ -9,8 +9,8 @@ meshes on the card (a process group of one rank, NCCL): ``shard_batch``
 and ``distribute_params`` on a 1x1 mesh, a smoke train step on it
 against the unmeshed step, the RFold cluster on the ``cuda``
 engine training a 1-XPU job, and the benches: ``kernels_bench``'s
-kernel rows against its plain rows, ``reconfig_bench`` on ``cuda``
-against ``numpy``.
+kernel rows against its plain rows and a bare section on the card,
+``reconfig_bench`` on ``cuda`` against ``numpy``.
 Every test is marked ``cuda`` and skips without a card. This file
 imports neither JAX nor ``repro``, so it also runs where only the
 port's requirements are installed:
@@ -1102,6 +1102,17 @@ def test_kernels_bench_sibling_rows_agree_with_their_plain_rows(card):
                  "ssd_kernel_chunk64", "fitmask_kernel_64cubes"):
         assert float(by_name[name]) > 0, name
     assert by_name["ssd_kernel_chunk256"] == "refused"
+
+
+def test_kernels_bench_section_defaults_to_the_card(card):
+    """A bare section runs on the card, its kernel row included."""
+    from benchmarks_torch import kernels_bench
+
+    rows = []
+    kernels_bench.bench_fitmask(rows.append)
+    assert [r.split(",")[0] for r in rows] == [
+        "fitmask_numpy_16cube", "fitmask_reduce_window_64cubes",
+        "fitmask_kernel_64cubes"]
 
 
 def test_reconfig_bench_on_cuda_gives_numpys_placements(card):

@@ -515,6 +515,26 @@ def test_fault_mode_kill_fail_stops_victims(engine):
     assert len(result.dropped) >= obs.killed
 
 
+def test_job_fields_bind_positionally_as_the_references():
+    """``Job``'s fields are in ``repro``'s order (``killed`` after
+    ``migrations``), so a positional call binds alike in both packages."""
+    import dataclasses
+
+    names = [f.name for f in dataclasses.fields(Job)]
+    assert names == [f.name for f in dataclasses.fields(RefJob)]
+    head = (1, 0.0, 1.0)
+    port = Job(*head, JobShape((2, 1, 1)), 0, None, None, False, 2.0)
+    ref = RefJob(*head, RefJobShape((2, 1, 1)), 0, None, None, False, 2.0)
+    assert (port.slowdown, port.killed) == (ref.slowdown, ref.killed) == \
+        (2.0, False)
+    tail = (0, 1.0, 2.0, True, 1.5, {"k": 1}, 2, 3, True, 0.25)
+    port = Job(*head, JobShape((2, 1, 1)), *tail)
+    ref = RefJob(*head, RefJobShape((2, 1, 1)), *tail)
+    rest = [n for n in names if n != "shape"]
+    assert [getattr(port, n) for n in rest] == [getattr(ref, n) for n in rest]
+    assert port.shape.dims == ref.shape.dims
+
+
 @pytest.mark.parametrize("sim_cls", [Simulator, RefSimulator],
                          ids=["port", "reference"])
 def test_unknown_fault_mode_raises(sim_cls):

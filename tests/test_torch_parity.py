@@ -21,6 +21,15 @@ What the port names otherwise stands in ``RENAMED``; what it leaves out
 on purpose stands in ``NOT_PORTED``; each with its reason. A name that is
 neither present nor listed fails, and so does a listed entry that no
 longer matches a missing name (a stale entry).
+
+A call binds in the port as in ``repro``: each positional parameter the
+two share (after ``RENAMED``) has the same index in both, and a
+reference dataclass's fields keep their order (a field the port makes
+``kw_only`` is not positional); each shared parameter keeps the
+reference's literal default, stays required where the reference
+requires it and keeps a default where the reference has one. The
+departures the port means stand in ``MOVED`` and ``DEFAULTS``, each
+with its reason, and are held against staleness in the same way.
 """
 from __future__ import annotations
 
@@ -138,6 +147,58 @@ NOT_PORTED = {
     "src/repro/launch/dryrun.py:parse_collective_bytes":
         "parses XLA's HLO text; the port has no HLO, and collective_bytes "
         "totals the collectives its CostMode records",
+}
+
+
+# Parameters the port binds otherwise on purpose: ``path:qualname(param)``
+# (fnmatch patterns) -> reason. MOVED: a positional parameter at another
+# index (``departures``); DEFAULTS: another default, or none.
+_DEVICE = "the port's initialisers take the device to build on after the "\
+    "generator"
+MOVED = {
+    "src/repro/models/attention.py:init_attention(*)": _DEVICE,
+    "src/repro/models/blocks.py:init_layer(*)": _DEVICE,
+    "src/repro/models/ffn.py:init_ffn(*)": _DEVICE,
+    "src/repro/models/common.py:dense_init(*)": _DEVICE,
+    "src/repro/models/common.py:embed_init(*)": _DEVICE,
+    "src/repro/models/common.py:init_norm(*)":
+        "the device to build on comes after cfg (init_norm takes no key)",
+    "src/repro/kernels/ssd_scan/kernel.py:ssd_scan_kernel(*)":
+        "ssd_scan (RENAMED) takes the ops-level order chunk, d_skip",
+    "src/repro/sim/fleet.py:QueryBroker(*)":
+        "pad_b is not ported (NOT_PORTED): max_inflight moves up one",
+    "src/repro/sim/fleet.py:BrokerStats(*)":
+        "k_needed, k_slots and padded_grids are not ported (NOT_PORTED): "
+        "the fields after them move up",
+    "src/repro/eval/runner.py:EvalRunner(*)":
+        "the fleet_* aliases are not ported (NOT_PORTED): engine moves up",
+    "benchmarks/failover_drill.py:run_*(*)":
+        "the engine the daemons run on comes first (run_failover also "
+        "drops the unread seed)",
+    "benchmarks/fleet_bench.py:canary_section(*)":
+        "the engine and device the drill fails over from come before "
+        "flushes",
+    "benchmarks/kernels_bench.py:main(*)":
+        "argv comes first, as in every bench's main; emit follows",
+    "benchmarks/fitmask_bench.py:run_sweep(*)":
+        "singlepass_sweep (RENAMED) takes the kernel, device and timer "
+        "first, then the (grid, B, K) cells as one list",
+}
+DEFAULTS = {
+    "src/repro/launch/dryrun.py:build_dryrun(multi_pod)":
+        "False, a single pod, as the port's trace_cost defaults it",
+    "src/repro/models/model.py:init_model(key)":
+        "generator=None is PyTorch's default generator for the device; a "
+        "JAX key has no such default",
+    "benchmarks/fleet_bench.py:engine_section(engine)":
+        "'jax' is repro's engine; the port's caller names the engine it "
+        "times, as it names the device",
+    "benchmarks/report.py:*_table(*path)":
+        "repro reads the committed BENCH_*.json; the port never reads or "
+        "writes them, so the caller names its experiments/ file",
+    "benchmarks/fitmask_bench.py:run_sweep(*)":
+        "the cells default to SINGLEPASS_CELLS, and 50 timed calls on the "
+        "card replace the 3 of repro's sweep",
 }
 
 
@@ -312,8 +373,156 @@ def missing_names(rel):
     return missing
 
 
-def _listed(key):
-    return any(fnmatch.fnmatchcase(key, p) for p in NOT_PORTED)
+def _listed(key, table=NOT_PORTED):
+    return any(fnmatch.fnmatchcase(key, p) for p in table)
+
+
+
+# ---------------------------------------------------------- positions
+REQUIRED = object()      # a parameter with no default
+EXPRESSION = object()    # a default of the reference that is no literal
+POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
+              inspect.Parameter.POSITIONAL_OR_KEYWORD)
+
+
+def _default(node):
+    if node is None:
+        return REQUIRED
+    try:
+        return ast.literal_eval(node)
+    except (ValueError, TypeError, SyntaxError):
+        return EXPRESSION
+
+
+def _call_signature(fn):
+    """(positional parameters, {parameter: default}) of a ``def``."""
+    a = fn.args
+    positional = [x.arg for x in a.posonlyargs + a.args]
+    defaults = [None] * (len(positional) - len(a.defaults)) + a.defaults
+    out = {name: _default(d) for name, d in zip(positional, defaults)}
+    out.update((x.arg, _default(d))
+               for x, d in zip(a.kwonlyargs, a.kw_defaults))
+    drop = ("self", "cls")
+    return ([n for n in positional if n not in drop],
+            {n: d for n, d in out.items() if n not in drop})
+
+
+def _is_dataclass(node):
+    for d in node.decorator_list:
+        d = d.func if isinstance(d, ast.Call) else d
+        if getattr(d, "id", getattr(d, "attr", None)) == "dataclass":
+            return True
+    return False
+
+
+def _dataclass_signature(node):
+    """(fields in order, {field: default}) of a ``@dataclass`` class. The
+    reference's dataclasses use no ``kw_only``, ``init=False``,
+    ``ClassVar`` or base dataclass, so every annotated field is a
+    positional parameter of ``__init__``."""
+    fields, defaults = [], {}
+    for item in node.body:
+        if not (isinstance(item, ast.AnnAssign)
+                and isinstance(item.target, ast.Name)):
+            continue
+        value = item.value
+        if isinstance(value, ast.Call) and \
+                getattr(value.func, "id", "") == "field":
+            kw = {k.arg: k.value for k in value.keywords}
+            default = _default(kw["default"]) if "default" in kw else \
+                EXPRESSION if "default_factory" in kw else REQUIRED
+        else:
+            default = _default(value)
+        fields.append(item.target.id)
+        defaults[item.target.id] = default
+    return fields, defaults
+
+
+def reference_signatures(rel):
+    """(qualname, positional parameters, {parameter: default}, dataclass
+    fields or None) of every public callable of one module; a class's
+    ``__init__`` (or its dataclass fields) goes under the class's name."""
+    tree = ast.parse(open(os.path.join(ROOT, rel)).read())
+    out = []
+    for node in _body(tree.body):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            if _public(node.name):
+                out.append((node.name, *_call_signature(node), None))
+        elif isinstance(node, ast.ClassDef) and _public(node.name):
+            init = None
+            for item in node.body:
+                if not isinstance(item,
+                                  (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    continue
+                if item.name == "__init__":
+                    init = item
+                    out.append((node.name, *_call_signature(item), None))
+                elif _public(item.name):
+                    out.append((f"{node.name}.{item.name}",
+                                *_call_signature(item), None))
+            if init is None and _is_dataclass(node):
+                fields, defaults = _dataclass_signature(node)
+                out.append((node.name, fields, defaults, fields))
+    return out
+
+
+def _port_signature(obj):
+    """(positional parameters, {parameter: default}) of the port's
+    callable, or None; ``*args``/``**kwargs`` are neither."""
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    params = [p for p in sig.parameters.values()
+              if p.name not in ("self", "cls") and p.kind not in
+              (p.VAR_POSITIONAL, p.VAR_KEYWORD)]
+    return ([p.name for p in params if p.kind in POSITIONAL],
+            {p.name: REQUIRED if p.default is p.empty else p.default
+             for p in params})
+
+
+def _same_default(ref, port):
+    if ref is REQUIRED or port is REQUIRED:
+        return ref is port
+    if ref is EXPRESSION:
+        return True
+    return type(ref) is type(port) and ref == port
+
+
+def departures(rel):
+    """Keys (``path:qualname(param)``) of the reference's parameters that
+    the port has but binds otherwise: ``moved``, a positional parameter
+    at another index (or keyword-only in the port) or a dataclass field
+    in another order; ``defaults``, a parameter the reference requires
+    that the port does not, or whose literal default the port changes,
+    or whose default the port drops."""
+    mod = importlib.import_module(port_module_name(rel))
+    moved, defaults = [], []
+    for qualname, positional, ref_defaults, fields in \
+            reference_signatures(rel):
+        key = f"{rel}:{qualname}"
+        obj = _resolve(mod, _port_qualname(rel, qualname))
+        port = None if obj is MISSING or not callable(obj) else \
+            _port_signature(obj)
+        if port is None:
+            continue
+        port_positional, port_defaults = port
+        here = {p: _renamed(f"{key}({p})") or p for p in ref_defaults}
+        for i, p in enumerate(positional):
+            if here[p] in port_defaults and (
+                    here[p] not in port_positional
+                    or port_positional.index(here[p]) != i):
+                moved.append(f"{key}({p})")
+        if fields is not None and dataclasses.is_dataclass(obj):
+            port_fields = [f.name for f in dataclasses.fields(obj)]
+            order = [f for f in port_fields if f in fields]
+            shared = [f for f in fields if f in port_fields]
+            moved += [f"{key}({a})" for a, b in zip(shared, order)
+                      if a != b and f"{key}({a})" not in moved]
+        defaults += [f"{key}({p})" for p, ref in ref_defaults.items()
+                     if here[p] in port_defaults
+                     and not _same_default(ref, port_defaults[here[p]])]
+    return {"moved": moved, "defaults": defaults}
 
 
 MODULES = reference_modules()
@@ -375,6 +584,44 @@ def test_renamed_entry_is_not_stale(pattern):
                     assert _resolve(mod, _port_qualname(rel, qualname)) \
                         is not MISSING, key
     assert hits, pattern
+
+
+@pytest.fixture(scope="module")
+def all_departures():
+    return {rel: departures(rel) for rel in MODULES}
+
+
+@pytest.mark.parametrize("rel", MODULES)
+def test_positional_parameters_keep_their_place(all_departures, rel):
+    """A positional call binds as in repro: every positional parameter
+    (and dataclass field) the port shares sits at the reference's index,
+    unless MOVED lists it."""
+    unlisted = [key for key in all_departures[rel]["moved"]
+                if not _listed(key, MOVED)]
+    assert not unlisted, unlisted
+
+
+@pytest.mark.parametrize("rel", MODULES)
+def test_defaults_are_the_references(all_departures, rel):
+    """A shared parameter keeps the reference's literal default, stays
+    required where repro requires it, and keeps a default where repro
+    has one, unless DEFAULTS lists it."""
+    unlisted = [key for key in all_departures[rel]["defaults"]
+                if not _listed(key, DEFAULTS)]
+    assert not unlisted, unlisted
+
+
+@pytest.mark.parametrize("table,pattern",
+                         [("moved", p) for p in sorted(MOVED)]
+                         + [("defaults", p) for p in sorted(DEFAULTS)])
+def test_binding_entry_is_not_stale(all_departures, table, pattern):
+    """Each MOVED and DEFAULTS entry names a departure the port still
+    makes."""
+    reason = (MOVED if table == "moved" else DEFAULTS)[pattern]
+    assert reason.strip()
+    assert any(fnmatch.fnmatchcase(key, pattern)
+               for found in all_departures.values()
+               for key in found[table]), pattern
 
 
 def test_the_chaos_layer_has_repros_fail_stop_mode():

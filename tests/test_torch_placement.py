@@ -85,6 +85,38 @@ def test_failover_chain():
     assert engineconfig.failover_candidates("bogus") == ()
 
 
+def test_engine_config_binds_positionally_as_the_references():
+    """``device`` is keyword-only, so ``engine, fleet_size, quorum,
+    timeout, max_inflight`` bind by position as in ``repro``."""
+    from repro.core.engineconfig import EngineConfig as RefEngineConfig
+
+    assert EngineConfig("numpy", 4).fleet_size == \
+        RefEngineConfig("numpy", 4).fleet_size == 4
+    args = ("numpy", 4, 0.5, 0.01, 3)
+    names = ("engine", "fleet_size", "quorum", "timeout", "max_inflight")
+    port, ref = EngineConfig(*args), RefEngineConfig(*args)
+    assert [getattr(port, n) for n in names] == \
+        [getattr(ref, n) for n in names] == list(args)
+    assert port.device is None
+    with pytest.raises(TypeError):
+        EngineConfig(*args, "cpu")
+    cfg = EngineConfig("cuda", 0)          # no device: fleet_size 0
+    assert (cfg.fleet_size, cfg.device) == (0, None)
+    assert cfg.resolve_name() == "cuda"
+    assert cfg.fleet_kwargs()["device"] is None
+    # device= by keyword still reaches the engine: the plain versions
+    cfg = EngineConfig("cuda", device="cpu")
+    eng = cfg.get_engine()
+    assert eng.device.type == "cpu"
+    occ = np.random.default_rng(1).uniform(size=(2, 4, 4, 4)) < 0.3
+    boxes = [(2, 1, 1), (2, 2, 2)]
+    tk.reset_launch_counts()
+    got = eng.multibox(torch.from_numpy(occ), boxes)
+    assert sum(tk.launch_counts().values()) == 0
+    assert ((got.numpy() != 0) == (ops.get_engine("numpy").multibox(
+        occ, boxes) != 0)).all()
+
+
 def test_cuda_engine_does_not_pad_shapes():
     eng = ops.get_engine("cuda", device="cpu")
     assert not eng.pads_shapes and not eng.host_free
