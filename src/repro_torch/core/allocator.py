@@ -18,6 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+from .. import obs
 from .folding import Fold, enumerate_folds, fold_links, verify_fold
 from .geometry import Coord, Dims, JobShape, is_torus_neighbor, volume
 from .reconfig import ReconfigPlan, ReconfigTorus
@@ -69,6 +70,9 @@ class PlacementPolicy:
         return self.busy_xpus / self.num_xpus
 
     # -- scheduling API ------------------------------------------------
+    # Each policy's ``try_place`` is the span ``policy.place``
+    # (repro_torch.obs): the parent of the folding, cube-search and
+    # torus spans of one placement attempt.
     def try_place(self, job_id: int, shape: JobShape) -> Optional[Placement]:
         raise NotImplementedError
 
@@ -129,6 +133,7 @@ class _StaticBase(PlacementPolicy):
         when the box spans the full torus dimension."""
         return tuple(b == d for b, d in zip(box, self.torus.dims))
 
+    @obs.span("torus.commit")
     def _commit_fold(self, job_id: int, fold: Fold, origin: Coord,
                      broken: Tuple[int, ...]) -> Placement:
         coords = []
@@ -181,6 +186,7 @@ class FirstFitPolicy(_StaticBase):
         return FirstFitPolicy(self.torus.dims,
                               engine=self.torus.engine_config)
 
+    @obs.span("policy.place")
     def try_place(self, job_id: int, shape: JobShape) -> Optional[Placement]:
         folds = [f for f in enumerate_folds(shape,
                                             max_dim=max(self.torus.dims),
@@ -211,6 +217,7 @@ class FoldingPolicy(_StaticBase):
         return FoldingPolicy(self.torus.dims,
                              engine=self.torus.engine_config)
 
+    @obs.span("policy.place")
     def try_place(self, job_id: int, shape: JobShape) -> Optional[Placement]:
         candidates = []
         folds = list(enumerate_folds(shape, max_dim=max(self.torus.dims)))
@@ -283,6 +290,7 @@ class _ReconfigBase(PlacementPolicy):
     # engine (pure-python place_fold, clone-based can_ever_place).
     use_naive = False
 
+    @obs.span("policy.place")
     def try_place(self, job_id: int, shape: JobShape) -> Optional[Placement]:
         if self.use_naive:
             best: Optional[ReconfigPlan] = None
@@ -406,6 +414,7 @@ class RFoldBestEffortPolicy(RFoldPolicy):
         # no cube is dedicated, so feasibility is just capacity.
         return shape.size <= self.num_xpus
 
+    @obs.span("policy.place")
     def try_place(self, job_id: int, shape: JobShape) -> Optional[Placement]:
         p = super().try_place(job_id, shape)
         if p is not None:

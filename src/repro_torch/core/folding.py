@@ -34,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .. import obs
 from .geometry import (Coord, Dims, JobShape, factor_pairs, factorizations3,
                        hamiltonian_cycle_2d, hamiltonian_cycle_3d,
                        is_torus_neighbor, volume)
@@ -102,7 +103,10 @@ def ring_edges(job_dims: Dims) -> List[Tuple[Coord, Coord, int]]:
 
 
 def verify_fold(fold: Fold, wrap_available: WrapFlags) -> Tuple[bool, List[int]]:
-    """Memoized per fold instance (folds are immutable)."""
+    """Memoized per fold instance (folds are immutable). Each call is
+    a ``folding.lookups``, each one computed a ``folding.misses``
+    (repro_torch.obs), as for :func:`enumerate_folds`."""
+    obs.count("folding.lookups")
     cache = getattr(fold, "_verify_cache", None)
     if cache is None:
         cache = {}
@@ -110,11 +114,13 @@ def verify_fold(fold: Fold, wrap_available: WrapFlags) -> Tuple[bool, List[int]]
     key = tuple(wrap_available)
     hit = cache.get(key)
     if hit is None:
+        obs.count("folding.misses")
         hit = _verify_fold_impl(fold, wrap_available)
         cache[key] = hit
     return hit
 
 
+@obs.span("folding.verify")
 def _verify_fold_impl(fold: Fold,
                       wrap_available: WrapFlags) -> Tuple[bool, List[int]]:
     """Certify the fold as a ring-product embedding (vectorized).
@@ -332,15 +338,20 @@ def enumerate_folds(shape: JobShape, max_dim: Optional[int] = None,
     ``max_dim`` bounds any box dimension (e.g. the torus extent, or the
     largest chainable cube extent for a reconfigurable torus).
     Memoized: fold construction (Hamiltonian cycles over up to 4096
-    nodes) dominates allocator cost otherwise.
+    nodes) dominates allocator cost otherwise. Each call is a
+    ``folding.lookups``; a construction is a ``folding.misses`` and the
+    span ``folding.enumerate`` (repro_torch.obs).
     """
+    obs.count("folding.lookups")
     dims = tuple(sorted(shape.dims, reverse=True))
     return list(_enumerate_folds_cached(dims, max_dim, include_identity))
 
 
 @functools.lru_cache(maxsize=4096)
+@obs.span("folding.enumerate")
 def _enumerate_folds_cached(dims: Dims, max_dim: Optional[int],
                             include_identity: bool) -> Tuple[Fold, ...]:
+    obs.count("folding.misses")
     shape = JobShape(dims)
     nd = shape.ndim
     folds: List[Fold] = []

@@ -22,10 +22,11 @@ torus) is represented by ``None`` — it is not an engine call.
 """
 from __future__ import annotations
 
-import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .. import obs
 
 Box = Tuple[int, int, int]
 
@@ -62,8 +63,9 @@ class MaskQueryClient:
 class InlineMaskClient(MaskQueryClient):
     """Answers requests immediately from one fitmask engine and copies
     the answer to host numpy. ``seconds`` accumulates the host time spent
-    answering; each answer ends in a copy to the host, so it includes the
-    device's work."""
+    answering, the total of the span ``maskquery.inline``
+    (repro_torch.obs); each answer ends in a copy to the host (the span
+    ``fitmask.readback``), so it includes the device's work."""
 
     def __init__(self, engine):
         self.engine = engine
@@ -71,21 +73,28 @@ class InlineMaskClient(MaskQueryClient):
         self.seconds = 0.0
 
     def multibox(self, occ, boxes: Sequence[Box]) -> np.ndarray:
-        t0 = time.perf_counter()
-        if len(boxes) == 1:
-            # A lone candidate takes the engine's single-box entry point.
-            # The answer is the same as multibox's; the branch exists only
-            # so the placement loop drives the single-box kernel.
-            out = to_numpy(self.engine.fitmask(occ, boxes[0]))[:, None]
-        else:
-            out = to_numpy(self.engine.multibox(occ, boxes))
-        self.seconds += time.perf_counter() - t0
+        with obs.span("maskquery.inline") as call:
+            if len(boxes) == 1:
+                # A lone candidate takes the engine's single-box entry
+                # point. The answer is the same as multibox's; the branch
+                # exists only so the placement loop drives the single-box
+                # kernel.
+                out = self.engine.fitmask(occ, boxes[0])
+                with obs.span("fitmask.readback"):
+                    out = to_numpy(out)[:, None]
+            else:
+                out = self.engine.multibox(occ, boxes)
+                with obs.span("fitmask.readback"):
+                    out = to_numpy(out)
+        self.seconds += call.seconds
         return out
 
     def free_counts(self, occ) -> np.ndarray:
-        t0 = time.perf_counter()
-        out = to_numpy(self.engine.free_counts(occ)).astype(np.int64)
-        self.seconds += time.perf_counter() - t0
+        with obs.span("maskquery.inline") as call:
+            out = self.engine.free_counts(occ)
+            with obs.span("fitmask.readback"):
+                out = to_numpy(out).astype(np.int64)
+        self.seconds += call.seconds
         return out
 
 

@@ -51,6 +51,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs
 from . import events as _events
 from . import fitmask
 from .engineconfig import EngineConfig
@@ -363,61 +364,63 @@ class ReconfigTorus:
         path (an accelerator engine answers both sub-block freeness and
         free counts itself — no host integral image is ever built).
         When only a few cubes changed since the last refresh (tracked
-        by place/release), just those rows are recomputed."""
+        by place/release), just those rows are recomputed. A refresh is
+        the span ``reconfig.derive`` (repro_torch.obs)."""
         if self._cache_epoch == self._epoch:
             return
-        n3 = self.cube_n ** 3
-        client = self._resolve_client()
-        dirty = self._dirty
-        partial = (dirty is not None and self._cache_epoch >= 0
-                   and client is self._engine
-                   and len(dirty) * 4 <= self.num_cubes)
-        if partial:
-            d = np.fromiter(dirty, dtype=np.int64, count=len(dirty))
-            d.sort()
-            if d.size:
-                if client is None:
-                    self._ii[d] = fitmask.integral_image(self.occ[d])
-                    self._free_cnt[d] = n3 - self._ii[d, -1, -1, -1]
-                    for s, m in self._shape_masks.items():
-                        m[d] = False
-                        w = fitmask.window_sums_from_ii(self._ii[d], s)
-                        if w.size:
-                            m[d, :w.shape[1], :w.shape[2], :w.shape[3]] = \
-                                w == 0
-                else:
-                    self._free_cnt[d] = client.free_counts(self.occ[d])
-                    if self._shape_masks:
-                        shapes = sorted(self._shape_masks)
-                        out = client.multibox(self.occ[d], shapes)
-                        for k, s in enumerate(shapes):
-                            self._shape_masks[s][d] = out[:, k] != 0
-                self._cube_empty[d] = self._free_cnt[d] == n3
-        else:
-            if client is None:
-                self._ii = fitmask.batched_integral_image(self.occ)
-                self._free_cnt = n3 - self._ii[:, -1, -1, -1]
+        with obs.span("reconfig.derive"):
+            n3 = self.cube_n ** 3
+            client = self._resolve_client()
+            dirty = self._dirty
+            partial = (dirty is not None and self._cache_epoch >= 0
+                       and client is self._engine
+                       and len(dirty) * 4 <= self.num_cubes)
+            if partial:
+                d = np.fromiter(dirty, dtype=np.int64, count=len(dirty))
+                d.sort()
+                if d.size:
+                    if client is None:
+                        self._ii[d] = fitmask.integral_image(self.occ[d])
+                        self._free_cnt[d] = n3 - self._ii[d, -1, -1, -1]
+                        for s, m in self._shape_masks.items():
+                            m[d] = False
+                            w = fitmask.window_sums_from_ii(self._ii[d], s)
+                            if w.size:
+                                m[d, :w.shape[1], :w.shape[2], :w.shape[3]] = \
+                                    w == 0
+                    else:
+                        self._free_cnt[d] = client.free_counts(self.occ[d])
+                        if self._shape_masks:
+                            shapes = sorted(self._shape_masks)
+                            out = client.multibox(self.occ[d], shapes)
+                            for k, s in enumerate(shapes):
+                                self._shape_masks[s][d] = out[:, k] != 0
+                    self._cube_empty[d] = self._free_cnt[d] == n3
             else:
-                self._ii = None
-                self._free_cnt = client.free_counts(self.occ)
-            self._cube_empty = self._free_cnt == n3
-            self._shape_masks = {}
-        # Best-fit ordering: least leftover first, non-empty cubes break
-        # ties (the piece size shifts every key equally, so one key
-        # serves all piece sizes); np.argmin's first-minimum rule becomes
-        # a stable sort with index tiebreak.
-        self._order_key = self._free_cnt * 2 + self._cube_empty
-        self._global_order = np.argsort(self._order_key, kind="stable")
-        # Eligible non-empty cubes: any plan on nc cubes strands at
-        # least nc - this many fresh (previously empty) cubes — the
-        # per-row fresh lower bound the search prunes with.
-        self._n_nonempty_elig = int(
-            (~self._cube_empty & (self.dedicated < 0)).sum())
-        self._elig_order = None
-        self._engine = client
-        self._sorted_cands = {}
-        self._dirty = set()
-        self._cache_epoch = self._epoch
+                if client is None:
+                    self._ii = fitmask.batched_integral_image(self.occ)
+                    self._free_cnt = n3 - self._ii[:, -1, -1, -1]
+                else:
+                    self._ii = None
+                    self._free_cnt = client.free_counts(self.occ)
+                self._cube_empty = self._free_cnt == n3
+                self._shape_masks = {}
+            # Best-fit ordering: least leftover first, non-empty cubes break
+            # ties (the piece size shifts every key equally, so one key
+            # serves all piece sizes); np.argmin's first-minimum rule becomes
+            # a stable sort with index tiebreak.
+            self._order_key = self._free_cnt * 2 + self._cube_empty
+            self._global_order = np.argsort(self._order_key, kind="stable")
+            # Eligible non-empty cubes: any plan on nc cubes strands at
+            # least nc - this many fresh (previously empty) cubes — the
+            # per-row fresh lower bound the search prunes with.
+            self._n_nonempty_elig = int(
+                (~self._cube_empty & (self.dedicated < 0)).sum())
+            self._elig_order = None
+            self._engine = client
+            self._sorted_cands = {}
+            self._dirty = set()
+            self._cache_epoch = self._epoch
 
     def _eligible_order(self) -> np.ndarray:
         """Non-dedicated cube ids in best-fit order (the per-epoch
@@ -486,37 +489,39 @@ class ReconfigTorus:
         and every per-local query (:meth:`_block_free_mask`, the cube
         assignment, the vectorized single-cube search) is a view into
         it. Memoized per shape per epoch; place/release patch only the
-        rows of cubes they touched."""
+        rows of cubes they touched. Computing masks is the span
+        ``reconfig.fit_masks`` (repro_torch.obs)."""
         self._derived()
         m = self._shape_masks.get(shape)
         if m is None:
-            if self._engine is None:
-                m = np.zeros(self.occ.shape, dtype=bool)
-                w = fitmask.window_sums_from_ii(self._ii, shape)
-                if w.size:
-                    m[:, :w.shape[1], :w.shape[2], :w.shape[3]] = w == 0
-                self._shape_masks[shape] = m
-            else:
-                # One multi-box pass answers every seen-but-uncomputed
-                # shape for ALL cubes; masks already cached this epoch
-                # are merged with, not recomputed. That prefetch only
-                # pays on a compiled engine, where per-box cost is
-                # nearly free and dispatch is what's amortized. A
-                # host-backed client (numpy behind a broker) is the
-                # opposite — multibox cost is linear in K, and most of
-                # the hundreds of seen shapes are never queried in any
-                # one epoch — so it stays lazy, like the no-client
-                # host path: ask only for the shape in hand.
-                self._seen_shapes.add(shape)
-                if getattr(self._engine, "host_free", False):
-                    missing = [shape]
+            with obs.span("reconfig.fit_masks"):
+                if self._engine is None:
+                    m = np.zeros(self.occ.shape, dtype=bool)
+                    w = fitmask.window_sums_from_ii(self._ii, shape)
+                    if w.size:
+                        m[:, :w.shape[1], :w.shape[2], :w.shape[3]] = w == 0
+                    self._shape_masks[shape] = m
                 else:
-                    missing = sorted(s for s in self._seen_shapes
-                                     if s not in self._shape_masks)
-                out = self._engine.multibox(self.occ, missing)
-                for k, s in enumerate(missing):
-                    self._shape_masks[s] = out[:, k] != 0
-                m = self._shape_masks[shape]
+                    # One multi-box pass answers every seen-but-uncomputed
+                    # shape for ALL cubes; masks already cached this epoch
+                    # are merged with, not recomputed. That prefetch only
+                    # pays on a compiled engine, where per-box cost is
+                    # nearly free and dispatch is what's amortized. A
+                    # host-backed client (numpy behind a broker) is the
+                    # opposite — multibox cost is linear in K, and most of
+                    # the hundreds of seen shapes are never queried in any
+                    # one epoch — so it stays lazy, like the no-client
+                    # host path: ask only for the shape in hand.
+                    self._seen_shapes.add(shape)
+                    if getattr(self._engine, "host_free", False):
+                        missing = [shape]
+                    else:
+                        missing = sorted(s for s in self._seen_shapes
+                                         if s not in self._shape_masks)
+                    out = self._engine.multibox(self.occ, missing)
+                    for k, s in enumerate(missing):
+                        self._shape_masks[s] = out[:, k] != 0
+                    m = self._shape_masks[shape]
         return m
 
     def _block_free_mask(self, local: Slice3) -> np.ndarray:
@@ -722,6 +727,7 @@ class ReconfigTorus:
             broken_rings=tab.broken[t],
             num_ocs_links=int(tab.links[t]), fresh_cubes=fresh)
 
+    @obs.span("reconfig.plan_search")
     def plan_search(self, folds: Sequence[Fold], offset_search: bool = True,
                     ) -> Optional[ReconfigPlan]:
         """Best plan across a fold candidate list — the batched engine
@@ -729,7 +735,7 @@ class ReconfigTorus:
         order (scores tie-break on it); each fold's occupancy-free
         optimistic bound (:func:`fold_score_bound`) prunes whole folds
         against the incumbent before any table or occupancy state is
-        consulted."""
+        consulted. The span ``reconfig.plan_search`` (repro_torch.obs)."""
         best: Optional[ReconfigPlan] = None
         bound: Optional[Tuple] = None
         n = self.cube_n

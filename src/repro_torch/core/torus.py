@@ -14,6 +14,7 @@ from typing import Dict, FrozenSet, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import obs
 from . import events as _events
 from . import maskquery
 from .engineconfig import EngineConfig
@@ -73,6 +74,7 @@ class StaticTorus:
     multi-box pass. ``mask_client`` injects a
     request/response client (e.g. a batching broker) at construction."""
 
+    @obs.span("torus.init")
     def __init__(self, dims: Dims, fitmask_engine: Optional[str] = None,
                  engine=None, mask_client=None, listeners=None):
         self.dims: Dims = tuple(int(d) for d in dims)  # type: ignore[assignment]
@@ -177,6 +179,7 @@ class StaticTorus:
                 self._box_masks[b] = out[k] != 0
         return self._box_masks[box]
 
+    @obs.span("torus.prefetch")
     def prefetch_boxes(self, boxes) -> None:
         """Declare an allocator step's candidate boxes up front so an
         accelerator engine answers them all in one multi-box pass —
@@ -239,13 +242,14 @@ class StaticTorus:
         box = tuple(int(b) for b in box)
         self._fit_state()
         if box not in self._fit_origin:
-            m = self._fit_mask_for(box)
-            if not m.any():
-                self._fit_origin[box] = None
-            else:
-                flat = int(np.argmax(m))  # first True in C order
-                self._fit_origin[box] = tuple(
-                    int(v) for v in np.unravel_index(flat, m.shape))
+            with obs.span("torus.find_box"):
+                m = self._fit_mask_for(box)
+                if not m.any():
+                    self._fit_origin[box] = None
+                else:
+                    flat = int(np.argmax(m))  # first True in C order
+                    self._fit_origin[box] = tuple(
+                        int(v) for v in np.unravel_index(flat, m.shape))
         return self._fit_origin[box]
 
     def count_free_boxes(self, box: Dims) -> int:

@@ -55,6 +55,8 @@ from concurrent.futures import FIRST_COMPLETED, ProcessPoolExecutor, wait
 from dataclasses import asdict, dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from repro_torch import obs
+
 
 def derive_seed(seed0: int, run_idx: int) -> int:
     """Seed for run ``run_idx`` of a sweep rooted at ``seed0``.
@@ -243,7 +245,8 @@ def run_task(task: EvalTask, mask_client=None, engine=None) -> Dict:
     default the registry's, ``cuda``) is the policy's own engine, unless
     ``policy_kw`` names one: the inline path's, and the one its empty
     clones use. Either way the record is byte-identical apart from
-    ``sim_s``.
+    ``sim_s``, the seconds of the span ``sim.run`` (``repro_torch.obs``)
+    around the simulator's construction and run.
     """
     from repro_torch.core.allocator import make_policy
     from repro_torch.core.engineconfig import EngineConfig
@@ -276,9 +279,8 @@ def run_task(task: EvalTask, mask_client=None, engine=None) -> Dict:
         sim_kw.update(sc.sim_kw)
         sim_kw["faults"] = fault_schedule(sc, model, jobs, task.seed)
         sim_kw["observer"] = ChaosObserver()
-    t0 = time.perf_counter()
-    res = Simulator(policy, jobs, **sim_kw).run()
-    wall = time.perf_counter() - t0
+    with obs.span("sim.run") as sim:
+        res = Simulator(policy, jobs, **sim_kw).run()
     levels, cdf = utilization_cdf(res)
     rec = {
         "fingerprint": task.fingerprint(),
@@ -288,7 +290,7 @@ def run_task(task: EvalTask, mask_client=None, engine=None) -> Dict:
         "summary": summarize(res),
         "cdf_levels": [float(x) for x in levels],
         "cdf": [float(x) for x in cdf],
-        "sim_s": round(wall, 4),
+        "sim_s": round(sim.seconds, 4),
     }
     if sc is not None:
         rec["scenario"] = sc.name
@@ -335,7 +337,9 @@ def run_fleet_tasks(tasks: Sequence[EvalTask],
     fleet sharing a query broker (``repro_torch.sim.fleet``). Each
     simulator checkpoints itself the moment it finishes, so per-run
     resume granularity survives a worker dying mid-fleet. Returns the
-    records (task order) and the broker's coalescing stats.
+    records (task order) and the broker's coalescing stats, with
+    ``trace``: the spans and counters of this process over the fleet
+    (``repro_torch.obs.diff``), which cross a worker's boundary with them.
 
     ``engine`` selects the broker's engine: a registry name, an
     :class:`~repro_torch.core.engineconfig.EngineConfig` (its device
@@ -354,6 +358,7 @@ def run_fleet_tasks(tasks: Sequence[EvalTask],
     from repro_torch.core.engineconfig import EngineConfig
     from repro_torch.sim.fleet import Fleet
 
+    before = obs.totals()
     fleet = Fleet(engine, quorum=quorum, timeout=timeout)
     broker = fleet.broker
     policy_engine = EngineConfig(broker.engine_name
@@ -369,7 +374,9 @@ def run_fleet_tasks(tasks: Sequence[EvalTask],
         return go
 
     records = fleet.run([unit(t) for t in tasks])
-    return records, broker.stats.as_dict()
+    stats = broker.stats.as_dict()
+    stats["trace"] = obs.diff(before, obs.totals())
+    return records, stats
 
 
 class EvalRunner:
@@ -506,7 +513,13 @@ class EvalRunner:
         return int(fs)
 
     def run(self, tasks: Sequence[EvalTask]) -> List[Dict]:
-        """Run the matrix; returns records ordered like ``tasks``."""
+        """Run the matrix; returns records ordered like ``tasks``.
+
+        ``last_stats`` then holds the run's counts and, where tasks ran,
+        the spans and counters of ``repro_torch.obs`` over them:
+        ``last_stats["fleet"]["trace"]`` summed over the fleets (their
+        workers' included), or ``last_stats["trace"]`` for tasks run one
+        by one in this process."""
         t0 = time.perf_counter()
         records: List[Optional[Dict]] = [None] * len(tasks)
         pending: List[int] = []
@@ -522,16 +535,19 @@ class EvalRunner:
                       "from checkpoints")
 
         fleet_size = self._resolve_fleet_size(len(pending))
+        trace = None
         if pending and fleet_size:
             self._run_fleets(tasks, pending, records, fleet_size)
         elif pending:
             if self.workers and self.workers > 1:
                 self._run_pool(tasks, pending, records)
             else:
+                before = obs.totals()
                 for i in pending:
                     records[i] = run_task(tasks[i],
                                           engine=self.engine_config)
                     self._save_checkpoint(tasks[i], records[i])
+                trace = obs.diff(before, obs.totals())
 
         self.last_stats = {
             "tasks": len(tasks),
@@ -544,6 +560,8 @@ class EvalRunner:
         }
         if pending and fleet_size:
             self.last_stats["fleet"] = self._fleet_stats
+        if trace is not None:
+            self.last_stats["trace"] = trace
         return [r for r in records if r is not None]
 
     def _run_fleets(self, tasks: Sequence[EvalTask], pending: List[int],
@@ -602,7 +620,9 @@ class EvalRunner:
             round(agg["grids"] / agg["engine_calls"], 2)
             if agg["engine_calls"] else None)
         self._fleet_stats = {"size": fleet_size, "fleets": len(chunks),
-                             "broker": agg}
+                             "broker": agg,
+                             "trace": obs.merge([s["trace"]
+                                                 for s in broker_totals])}
 
     def _run_pool(self, tasks: Sequence[EvalTask], pending: List[int],
                   records: List[Optional[Dict]]) -> None:

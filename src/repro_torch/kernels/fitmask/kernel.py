@@ -27,7 +27,10 @@ function of that name is for its bench.
 
 A wrapper takes its plain version only for a tensor on the CPU. For a
 CUDA tensor it launches the kernel or raises; nothing falls back. The
-kernels are CUDA C++ in ``repro_torch/csrc/fitmask.cu``, compiled with
+host's part of a launch (plan, box table on the card, output allocation,
+the call through ctypes) is the span ``fitmask.launch``
+(``repro_torch.obs``). The kernels are CUDA C++ in
+``repro_torch/csrc/fitmask.cu``, compiled with
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch/`` at first use (by
 :func:`repro_torch.kernels._build.build`) and bound with ctypes.
 
@@ -58,6 +61,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ... import obs
 from .._build import (SMEM_LIMIT_BYTES, Library, count_launch, load_once,
                       stream_of)
 
@@ -384,7 +388,8 @@ def fitmask_multibox(occ: torch.Tensor, boxes) -> torch.Tensor:
     table = box_table(boxes)
     if occ.device.type == "cpu":
         return fitmask_multibox_plain(occ, table)
-    out = _launch_multibox(_cuda_occ(occ), table)
+    with obs.span("fitmask.launch"):
+        out = _launch_multibox(_cuda_occ(occ), table)
     if out.numel():
         count_launch(fitmask_multibox)
     return out
@@ -399,7 +404,8 @@ def fitmask_batched(occ: torch.Tensor, box: Box) -> torch.Tensor:
     table = box_table([box])
     if occ.device.type == "cpu":
         return fitmask_multibox_plain(occ, table)[:, 0]
-    out = _launch_multibox(_cuda_occ(occ), table)
+    with obs.span("fitmask.launch"):
+        out = _launch_multibox(_cuda_occ(occ), table)
     if out.numel():
         count_launch(fitmask_batched)
     return out[:, 0]
@@ -417,7 +423,8 @@ def occupancy_counts(occ: torch.Tensor) -> torch.Tensor:
     bsz = occ.shape[0]
     if bsz == 0 or occ[0].numel() == 0:
         return torch.zeros((bsz,), dtype=torch.int32, device=occ.device)
-    out = _launch_counts(occ)
+    with obs.span("fitmask.launch"):
+        out = _launch_counts(occ)
     count_launch(occupancy_counts)
     return out
 
@@ -443,7 +450,8 @@ def fitmask_multibox_bucketed(occ: torch.Tensor, boxes):
         return (torch.empty((bsz, len(table), x, y, z), dtype=torch.bool,
                             device=occ.device),
                 torch.zeros((bsz,), dtype=torch.int32, device=occ.device))
-    out = _launch_bucketed(occ, table)
+    with obs.span("fitmask.launch"):
+        out = _launch_bucketed(occ, table)
     count_launch(fitmask_multibox_bucketed)
     return out
 

@@ -35,6 +35,7 @@ from typing import Dict, Optional, Sequence, Tuple, Type
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import engineconfig as _engineconfig
 from repro_torch.core import fitmask as np_engine
 from repro_torch.device import resolve_device
@@ -113,11 +114,13 @@ class NumpyEngine(FitmaskEngine):
 class _TensorEngine(FitmaskEngine):
     """An engine on one ``torch.device``: occupancy arrives as numpy or
     as a tensor, is moved to the device as a contiguous bool tensor
-    (nonzero = occupied), and answers stay on the device."""
+    (nonzero = occupied; the span ``fitmask.stage``, repro_torch.obs),
+    and answers stay on the device."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
 
+    @obs.span("fitmask.stage")
     def _occ(self, occ) -> torch.Tensor:
         t = torch.as_tensor(occ)
         if t.dtype != torch.bool:

@@ -94,6 +94,7 @@ from typing import (Any, Callable, Dict, List, Optional, Sequence,
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.maskquery import Box, MaskQueryClient, to_numpy
 
 # Engine-aware flush deadlines (seconds): the host engine answers a
@@ -139,7 +140,8 @@ class BrokerStats:
     fc_inline: int = 0         # answered inline on the host engine
     fc_cache_hits: int = 0     # answered from the content cache
     fc_cache_misses: int = 0   # parked for a batched round
-    # -- where a fleet's time goes --
+    # -- where a fleet's time goes (the totals of the spans
+    # ``broker.wait`` and ``broker.engine``, repro_torch.obs) --
     park_s: float = 0.0        # seconds queries spent parked (sum)
     engine_s: float = 0.0      # seconds in engine calls, copies included
     # -- containment & failover --
@@ -323,13 +325,13 @@ class QueryBroker(MaskQueryClient):
                              f"got shape {occ.shape}")
         if self._host_free:
             # Host reduction: cheaper than a park/flush round-trip.
-            t0 = time.monotonic()
-            out = to_numpy(self.engine.free_counts(occ))
+            with obs.span("broker.engine") as call:
+                out = to_numpy(self.engine.free_counts(occ))
             with self._lock:
                 self.stats.requests += 1
                 self.stats.fc_inline += 1
                 self.stats.record_call(1, occ.shape[0])
-                self.stats.engine_s += time.monotonic() - t0
+                self.stats.engine_s += call.seconds
             return out.astype(np.int64)
         key = self._fc_key(occ)
         with self._lock:
@@ -353,28 +355,32 @@ class QueryBroker(MaskQueryClient):
         if req.occ.ndim != 4:
             raise ValueError("broker expects (B, X, Y, Z) occupancy, "
                              f"got shape {req.occ.shape}")
-        with self._lock:
-            self._pending.append(req)
-            self.stats.requests += 1
-            if self._inflight:
-                self.stats.requeued += 1
-            batch = self._take_round_locked(deadline_ok=False)
-        if batch is not None:
-            self._lead(batch)
-        # Park until answered; on each deadline tick, check whether a
-        # waiting round (possibly ours, possibly a successor round) is
-        # now flushable and lead it if so. With watched stepper threads
-        # the tick is bounded by the watchdog period, so a killed
-        # stepper delays a flush by at most _WATCHDOG_TICK — it can
-        # never hang the broker.
-        while not req.done.wait(self._wait_tick()):
+        # ``broker.wait`` runs from submission to answer; the rounds this
+        # thread leads meanwhile are its child ``broker.lead``, so its
+        # self time is the wait on peers and the deadline.
+        with obs.span("broker.wait") as parked:
             with self._lock:
-                self._reap_locked()
-                batch = self._take_round_locked(deadline_ok=True)
+                self._pending.append(req)
+                self.stats.requests += 1
+                if self._inflight:
+                    self.stats.requeued += 1
+                batch = self._take_round_locked(deadline_ok=False)
             if batch is not None:
                 self._lead(batch)
+            # Park until answered; on each deadline tick, check whether
+            # a waiting round (possibly ours, possibly a successor round)
+            # is now flushable and lead it if so. With watched stepper
+            # threads the tick is bounded by the watchdog period, so a
+            # killed stepper delays a flush by at most _WATCHDOG_TICK —
+            # it can never hang the broker.
+            while not req.done.wait(self._wait_tick()):
+                with self._lock:
+                    self._reap_locked()
+                    batch = self._take_round_locked(deadline_ok=True)
+                if batch is not None:
+                    self._lead(batch)
         with self._lock:
-            self.stats.park_s += time.monotonic() - req.t
+            self.stats.park_s += parked.seconds
         if req.error is not None:
             raise req.error
         assert req.result is not None
@@ -419,6 +425,7 @@ class QueryBroker(MaskQueryClient):
         self.stats.flushes += 1
         return batch
 
+    @obs.span("broker.lead")
     def _lead(self, batch: List[_Request]) -> None:
         """Answer rounds until none is ready: the leader that finishes
         a flush immediately chains into any round that became flushable
@@ -485,9 +492,14 @@ class QueryBroker(MaskQueryClient):
             fn = getattr(self.engine, "multibox_bucketed", None)
             if fn is not None:
                 planes, free = fn(occ, boxes)
-                return to_numpy(planes), to_numpy(free).astype(np.int64)
-            return to_numpy(self.engine.multibox(occ, boxes)), None
-        return to_numpy(self.engine.free_counts(occ)).astype(np.int64)
+                with obs.span("fitmask.readback"):
+                    return to_numpy(planes), to_numpy(free).astype(np.int64)
+            out = self.engine.multibox(occ, boxes)
+            with obs.span("fitmask.readback"):
+                return to_numpy(out), None
+        out = self.engine.free_counts(occ)
+        with obs.span("fitmask.readback"):
+            return to_numpy(out).astype(np.int64)
 
     def _failover_names(self) -> Tuple[str, ...]:
         if self.engine_name is None:
@@ -566,13 +578,12 @@ class QueryBroker(MaskQueryClient):
         boxes = tuple(sorted({b for r in group for b in r.boxes}))
         kidx = {b: k for k, b in enumerate(boxes)}
         occ, real_b = self._stack(group)
-        t0 = time.monotonic()
-        planes, free = self._engine_call("multibox", occ, boxes)
-        spent = time.monotonic() - t0
+        with obs.span("broker.engine") as call:
+            planes, free = self._engine_call("multibox", occ, boxes)
         self._maybe_canary(occ, boxes, planes)
         with self._lock:
             self.stats.record_call(len(group), real_b)
-            self.stats.engine_s += spent
+            self.stats.engine_s += call.seconds
         lo = 0
         fc_entries = []
         for r in group:
@@ -599,11 +610,11 @@ class QueryBroker(MaskQueryClient):
 
     def _answer_free_counts(self, group: List[_Request]) -> None:
         occ, real_b = self._stack(group)
-        t0 = time.monotonic()
-        out = self._engine_call("free_counts", occ)
+        with obs.span("broker.engine") as call:
+            out = self._engine_call("free_counts", occ)
         with self._lock:
             self.stats.record_call(len(group), real_b)
-            self.stats.engine_s += time.monotonic() - t0
+            self.stats.engine_s += call.seconds
         lo = 0
         for r in group:
             hi = lo + r.occ.shape[0]
