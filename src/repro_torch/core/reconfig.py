@@ -41,6 +41,16 @@ score-bound prune a ``break``. ``place_fold_naive`` is the retained
 pure-python oracle; parity is byte-identical by construction (both
 searches return the feasible plan minimizing ``(score, offset
 product index)``).
+
+Occupancy-derived state (free counts, best-fit order, sub-block fit
+masks) is cached per occupancy epoch, and a commit or release marks
+only the cubes it touched for the next refresh. On a mask client
+(an engine, inline or behind the fleet's broker) every shape's
+full-grid fit mask seen so far is one column of a single
+``(C, K, n, n, n)`` stack: a refresh asks for all columns of the
+changed cubes, writes them with one array write, then asks for the
+same cubes' free counts, which a broker's fused pass has already
+computed and answers without a second round.
 """
 from __future__ import annotations
 
@@ -328,12 +338,14 @@ class ReconfigTorus:
         self._elig_order: Optional[np.ndarray] = None    # ...non-dedicated
         self._sorted_cands: Dict[Tuple[Slice3, bool, bool], List[int]] = {}
         # Per-epoch full-grid fit masks per sub-block shape (the shape
-        # set stabilizes after the first few placements). On an engine,
-        # all shapes seen so far are filled by one multi-box pass over
-        # the whole cube batch; the host path extracts each from the
-        # shared batched integral image.
-        self._seen_shapes: set = set()
+        # set stabilizes after the first few placements). The host path
+        # extracts each from the shared batched integral image into an
+        # array of its own. On a mask client they are the columns of one
+        # (C, K_cap, n, n, n) stack, in ``_stack_shapes`` order, and
+        # ``_shape_masks[shape]`` is a view of its column.
         self._shape_masks: Dict[Dims, np.ndarray] = {}
+        self._stack: Optional[np.ndarray] = None
+        self._stack_shapes: List[Dims] = []
 
     # ------------------------------------------------------------------
     def _resolve_client(self):
@@ -361,8 +373,9 @@ class ReconfigTorus:
     def _derived(self) -> None:
         """Refresh per-epoch derived state: per-cube free counts and
         best-fit sort keys, plus the batched integral image on the host
-        path (an accelerator engine answers both sub-block freeness and
-        free counts itself — no host integral image is ever built).
+        path. On a mask client the refresh also brings every stacked
+        fit mask up to date, with the free counts, in one round
+        (:meth:`_refresh_rows`); no host integral image is built.
         When only a few cubes changed since the last refresh (tracked
         by place/release), just those rows are recomputed. A refresh is
         the span ``reconfig.derive`` (repro_torch.obs)."""
@@ -389,22 +402,22 @@ class ReconfigTorus:
                                 m[d, :w.shape[1], :w.shape[2], :w.shape[3]] = \
                                     w == 0
                     else:
-                        self._free_cnt[d] = client.free_counts(self.occ[d])
-                        if self._shape_masks:
-                            shapes = sorted(self._shape_masks)
-                            out = client.multibox(self.occ[d], shapes)
-                            for k, s in enumerate(shapes):
-                                self._shape_masks[s][d] = out[:, k] != 0
+                        self._free_cnt[d] = self._refresh_rows(client, d)
                     self._cube_empty[d] = self._free_cnt[d] == n3
             else:
                 if client is None:
                     self._ii = fitmask.batched_integral_image(self.occ)
                     self._free_cnt = n3 - self._ii[:, -1, -1, -1]
+                    self._stack_shapes = []
                 else:
                     self._ii = None
-                    self._free_cnt = client.free_counts(self.occ)
+                    if getattr(client, "host_free", False):
+                        # Lazy client: the stack refills on demand.
+                        self._stack_shapes = []
+                    self._free_cnt = self._refresh_rows(client,
+                                                        slice(None))
+                self._bind_stack_views()
                 self._cube_empty = self._free_cnt == n3
-                self._shape_masks = {}
             # Best-fit ordering: least leftover first, non-empty cubes break
             # ties (the piece size shifts every key equally, so one key
             # serves all piece sizes); np.argmin's first-minimum rule becomes
@@ -421,6 +434,42 @@ class ReconfigTorus:
             self._sorted_cands = {}
             self._dirty = set()
             self._cache_epoch = self._epoch
+
+    def _refresh_rows(self, client, rows) -> np.ndarray:
+        """Bring rows ``rows`` of every stacked fit mask up to date and
+        return their free counts, in one round: masks for every stacked
+        shape first, in column order and written with one array write,
+        then the counts of the same occupancy. A broker's fused pass
+        computed those counts with the masks and answers them from its
+        cache without parking; with no stacked shape the counts are a
+        round of their own."""
+        occ = self.occ[rows]
+        k = len(self._stack_shapes)
+        if k:
+            out = client.multibox(occ, self._stack_shapes)
+            self._stack[rows, :k] = out != 0
+        return client.free_counts(occ)
+
+    def _bind_stack_views(self) -> None:
+        """Point ``_shape_masks`` at the stack's columns."""
+        stack = self._stack
+        self._shape_masks = {s: stack[:, k]
+                             for k, s in enumerate(self._stack_shapes)}
+
+    def _stack_column(self, shape: Dims) -> np.ndarray:
+        """Append ``shape`` as the stack's next column, growing its
+        capacity geometrically, and return the column's view."""
+        k = len(self._stack_shapes)
+        if self._stack is None or k == self._stack.shape[1]:
+            grown = np.zeros((self.num_cubes, max(8, 2 * k))
+                             + self.occ.shape[1:], dtype=bool)
+            if k:
+                grown[:, :k] = self._stack[:, :k]
+            self._stack = grown
+            self._bind_stack_views()
+        self._stack_shapes.append(shape)
+        m = self._shape_masks[shape] = self._stack[:, k]
+        return m
 
     def _eligible_order(self) -> np.ndarray:
         """Non-dedicated cube ids in best-fit order (the per-epoch
@@ -484,12 +533,14 @@ class ReconfigTorus:
         bool (C, n, n, n), True where the shape fits in free space with
         its corner at that cell. This is the one engine-vs-host routing
         point for sub-block freeness — the host path extracts window
-        sums from the per-epoch batched integral image, an accelerator
-        engine answers every shape seen so far in one multi-box pass —
-        and every per-local query (:meth:`_block_free_mask`, the cube
-        assignment, the vectorized single-cube search) is a view into
-        it. Memoized per shape per epoch; place/release patch only the
-        rows of cubes they touched. Computing masks is the span
+        sums from the per-epoch batched integral image; on a mask client
+        the mask is a column of the stack that each refresh brings up to
+        date in one round with the free counts, and a shape not yet
+        stacked is asked for alone and appended — and every per-local
+        query (:meth:`_block_free_mask`, the cube assignment, the
+        vectorized single-cube search) is a view into it. Memoized per
+        shape per epoch; place/release patch only the rows of cubes
+        they touched. Computing a missing mask is the span
         ``reconfig.fit_masks`` (repro_torch.obs)."""
         self._derived()
         m = self._shape_masks.get(shape)
@@ -502,26 +553,16 @@ class ReconfigTorus:
                         m[:, :w.shape[1], :w.shape[2], :w.shape[3]] = w == 0
                     self._shape_masks[shape] = m
                 else:
-                    # One multi-box pass answers every seen-but-uncomputed
-                    # shape for ALL cubes; masks already cached this epoch
-                    # are merged with, not recomputed. That prefetch only
-                    # pays on a compiled engine, where per-box cost is
-                    # nearly free and dispatch is what's amortized. A
-                    # host-backed client (numpy behind a broker) is the
-                    # opposite — multibox cost is linear in K, and most of
-                    # the hundreds of seen shapes are never queried in any
-                    # one epoch — so it stays lazy, like the no-client
-                    # host path: ask only for the shape in hand.
-                    self._seen_shapes.add(shape)
-                    if getattr(self._engine, "host_free", False):
-                        missing = [shape]
-                    else:
-                        missing = sorted(s for s in self._seen_shapes
-                                         if s not in self._shape_masks)
-                    out = self._engine.multibox(self.occ, missing)
-                    for k, s in enumerate(missing):
-                        self._shape_masks[s] = out[:, k] != 0
-                    m = self._shape_masks[shape]
+                    # Every stacked shape is current (each refresh brings
+                    # them all), so a miss asks for the new shape alone
+                    # and keeps it as a column: a device client refreshes
+                    # it with the rest from now on. A host-backed client
+                    # (numpy behind a broker), whose multibox cost is
+                    # linear in K, drops its columns at a full rebuild
+                    # and refills them lazily, like the no-client path.
+                    out = self._engine.multibox(self.occ, [shape])
+                    m = self._stack_column(shape)
+                    m[...] = out[:, 0] != 0
         return m
 
     def _block_free_mask(self, local: Slice3) -> np.ndarray:
