@@ -88,6 +88,7 @@ class PlacementPolicy:
         return hit
 
     def _can_ever_place(self, shape: JobShape) -> bool:
+        obs.count("policy.clone_probes")
         fresh = self.empty_clone()
         return fresh.try_place(-1, shape) is not None
 
@@ -132,6 +133,23 @@ class _StaticBase(PlacementPolicy):
         """Static torus: an axis has usable wrap-around for this job only
         when the box spans the full torus dimension."""
         return tuple(b == d for b, d in zip(box, self.torus.dims))
+
+    def _folds(self, shape: JobShape) -> List[Fold]:
+        raise NotImplementedError
+
+    def _can_ever_place(self, shape: JobShape) -> bool:
+        """Empty-cluster feasibility from the fold list, with no clone:
+        on an empty static torus every in-bounds fold box fits at the
+        origin, and a verified fold always commits. Like a fresh clone,
+        it reads none of this torus's occupancy or faults."""
+        obs.count("policy.feasibility")
+        dims = self.torus.dims
+        for fold in self._folds(shape):
+            if any(b > d for b, d in zip(fold.box, dims)):
+                continue
+            if verify_fold(fold, self._wrap_for_box(fold.box, (0, 0, 0)))[0]:
+                return True
+        return False
 
     @obs.span("torus.commit")
     def _commit_fold(self, job_id: int, fold: Fold, origin: Coord,
@@ -186,12 +204,15 @@ class FirstFitPolicy(_StaticBase):
         return FirstFitPolicy(self.torus.dims,
                               engine=self.torus.engine_config)
 
+    def _folds(self, shape: JobShape) -> List[Fold]:
+        return [f for f in enumerate_folds(shape,
+                                           max_dim=max(self.torus.dims),
+                                           include_identity=True)
+                if f.kind == "identity"]
+
     @obs.span("policy.place")
     def try_place(self, job_id: int, shape: JobShape) -> Optional[Placement]:
-        folds = [f for f in enumerate_folds(shape,
-                                            max_dim=max(self.torus.dims),
-                                            include_identity=True)
-                 if f.kind == "identity"]
+        folds = self._folds(shape)
         self.torus.prefetch_boxes(self._candidate_boxes(folds))
         for fold in folds:
             if any(b > d for b, d in zip(fold.box, self.torus.dims)):
@@ -217,10 +238,13 @@ class FoldingPolicy(_StaticBase):
         return FoldingPolicy(self.torus.dims,
                              engine=self.torus.engine_config)
 
+    def _folds(self, shape: JobShape) -> List[Fold]:
+        return list(enumerate_folds(shape, max_dim=max(self.torus.dims)))
+
     @obs.span("policy.place")
     def try_place(self, job_id: int, shape: JobShape) -> Optional[Placement]:
         candidates = []
-        folds = list(enumerate_folds(shape, max_dim=max(self.torus.dims)))
+        folds = self._folds(shape)
         self.torus.prefetch_boxes(self._candidate_boxes(folds))
         for fold in folds:
             if any(b > d for b, d in zip(fold.box, self.torus.dims)):
@@ -324,9 +348,11 @@ class _ReconfigBase(PlacementPolicy):
         invalidates the embedding), so checking the offset-0 wrap flags
         is exact."""
         if self.use_naive:
+            obs.count("policy.clone_probes")
             fresh = self.empty_clone()
             fresh.use_naive = True
             return fresh.try_place(-1, shape) is not None
+        obs.count("policy.feasibility")
         cl = self.cluster
         n = cl.cube_n
         for fold in self._folds(shape):
