@@ -166,7 +166,7 @@ class EngineConfig:
 
     def make_client(self):
         """Inline mask client for the resolved engine, or ``None`` for
-        the numpy host integral-image path."""
+        the numpy host engine, which a torus calls directly."""
         from .maskquery import resolve_mask_client
         return resolve_mask_client(self)
 

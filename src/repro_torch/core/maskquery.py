@@ -17,8 +17,11 @@ device, and the client copies the answer back (``.cpu().numpy()``) so
 callers index and cache plain arrays. Answers are a pure function of
 ``(occ[b], box)`` per plane.
 
-The numpy *host* path (integral images built directly inside the
-torus) is represented by ``None`` — it is not an engine call.
+Every torus reaches its masks through one client, picked by
+:func:`torus_client`: an installed client (the fleet's broker), else
+an :class:`InlineMaskClient` over a tensor engine, else the registry's
+``numpy`` engine, which computes on the host and meets the contract
+as it stands.
 """
 from __future__ import annotations
 
@@ -42,11 +45,9 @@ def to_numpy(x) -> np.ndarray:
 class MaskQueryClient:
     """The request/response contract a torus submits mask work to.
 
-    ``host_free`` advertises that the backing engine computes on the
-    host with cost linear in the number of boxes (numpy). Toruses use
-    it to choose a *lazy* mask strategy (ask only for the shape in
-    hand) instead of the prefetch-everything-seen strategy that
-    amortizes a launch on the device engines."""
+    ``host_free`` mirrors the backing engine's flag: it computes on the
+    host with cost linear in the number of boxes (numpy). Toruses ask
+    every client alike and do not read it."""
 
     host_free = False
 
@@ -106,7 +107,8 @@ _INLINE: Dict[int, InlineMaskClient] = {}
 
 def resolve_mask_client(selection=None) -> Optional[InlineMaskClient]:
     """Resolve an engine selection to an inline client: ``None`` for
-    the builtin numpy host path, a cached :class:`InlineMaskClient`
+    the ``numpy`` host engine (a torus calls it directly,
+    :func:`torus_client`), a cached :class:`InlineMaskClient`
     otherwise. ``selection`` is an engine name, an
     :class:`~repro_torch.core.engineconfig.EngineConfig`, or ``None`` —
     all resolved through ``EngineConfig.resolve_name()``."""
@@ -118,4 +120,17 @@ def resolve_mask_client(selection=None) -> Optional[InlineMaskClient]:
     client = _INLINE.get(id(engine))
     if client is None:
         client = _INLINE[id(engine)] = InlineMaskClient(engine)
+    return client
+
+
+def torus_client(mask_client, selection):
+    """The client a torus submits its mask work to: ``mask_client`` if
+    one is installed, else the inline client of ``selection``'s engine,
+    else (``numpy``) the registry's interned host engine itself."""
+    if mask_client is not None:
+        return mask_client
+    client = resolve_mask_client(selection)
+    if client is None:
+        from repro_torch.core.engineconfig import EngineConfig
+        client = EngineConfig.coerce(selection).get_engine()
     return client

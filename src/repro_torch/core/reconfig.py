@@ -44,13 +44,13 @@ product index)``).
 
 Occupancy-derived state (free counts, best-fit order, sub-block fit
 masks) is cached per occupancy epoch, and a commit or release marks
-only the cubes it touched for the next refresh. On a mask client
-(an engine, inline or behind the fleet's broker) every shape's
-full-grid fit mask seen so far is one column of a single
-``(C, K, n, n, n)`` stack: a refresh asks for all columns of the
-changed cubes, writes them with one array write, then asks for the
-same cubes' free counts, which a broker's fused pass has already
-computed and answers without a second round.
+only the cubes it touched for the next refresh. The masks come from
+one mask client (the host ``numpy`` engine, an inline engine or the
+fleet's broker): every shape's full-grid fit mask seen so far is one
+column of a single ``(C, K, n, n, n)`` stack, and a refresh asks for
+all columns of the changed cubes, writes them with one array write,
+then asks for the same cubes' free counts, which a broker's fused pass
+has already computed and answers without a second round.
 """
 from __future__ import annotations
 
@@ -63,7 +63,7 @@ import numpy as np
 
 from .. import obs
 from . import events as _events
-from . import fitmask
+from . import maskquery
 from .engineconfig import EngineConfig
 from .folding import Fold, WrapFlags, verify_fold
 from .geometry import Coord, Dims, volume
@@ -282,7 +282,7 @@ class ReconfigTorus:
             raise ValueError("num_xpus must be a multiple of cube volume")
         # Free-block search backend: an EngineConfig / registry name /
         # None for the resolved default (``fitmask_engine`` is the
-        # retained legacy spelling); "numpy" keeps the pure-host path.
+        # retained legacy spelling).
         self.engine_config = EngineConfig.coerce(
             engine if engine is not None else fitmask_engine)
         self.fitmask_engine = self.engine_config.engine
@@ -329,8 +329,7 @@ class ReconfigTorus:
         self._busy = 0
         self._cache_epoch = -1
         self._dirty: Optional[set] = None               # None = rebuild all
-        self._engine = None           # mask client resolved per refresh
-        self._ii: Optional[np.ndarray] = None           # batched integral image
+        self._client = None           # mask client resolved per refresh
         self._free_cnt: Optional[np.ndarray] = None     # (C,) free cells/cube
         self._cube_empty: Optional[np.ndarray] = None   # (C,) bool
         self._order_key: Optional[np.ndarray] = None    # best-fit sort key
@@ -338,24 +337,14 @@ class ReconfigTorus:
         self._elig_order: Optional[np.ndarray] = None    # ...non-dedicated
         self._sorted_cands: Dict[Tuple[Slice3, bool, bool], List[int]] = {}
         # Per-epoch full-grid fit masks per sub-block shape (the shape
-        # set stabilizes after the first few placements). The host path
-        # extracts each from the shared batched integral image into an
-        # array of its own. On a mask client they are the columns of one
-        # (C, K_cap, n, n, n) stack, in ``_stack_shapes`` order, and
-        # ``_shape_masks[shape]`` is a view of its column.
+        # set stabilizes after the first few placements): the columns
+        # of one (C, K_cap, n, n, n) stack, in ``_stack_shapes`` order,
+        # and ``_shape_masks[shape]`` is a view of its column.
         self._shape_masks: Dict[Dims, np.ndarray] = {}
         self._stack: Optional[np.ndarray] = None
         self._stack_shapes: List[Dims] = []
 
     # ------------------------------------------------------------------
-    def _resolve_client(self):
-        """The client this cluster submits mask work to (None = the
-        numpy host integral-image path)."""
-        if self.mask_client is not None:
-            return self.mask_client
-        from .maskquery import resolve_mask_client
-        return resolve_mask_client(self.engine_config)
-
     def bump_epoch(self) -> None:
         """Invalidate cached occupancy-derived state (call after any
         direct mutation of ``occ``/``dedicated``)."""
@@ -372,10 +361,8 @@ class ReconfigTorus:
 
     def _derived(self) -> None:
         """Refresh per-epoch derived state: per-cube free counts and
-        best-fit sort keys, plus the batched integral image on the host
-        path. On a mask client the refresh also brings every stacked
-        fit mask up to date, with the free counts, in one round
-        (:meth:`_refresh_rows`); no host integral image is built.
+        best-fit sort keys, and every stacked fit mask, brought up to
+        date with the free counts in one round (:meth:`_refresh_rows`).
         When only a few cubes changed since the last refresh (tracked
         by place/release), just those rows are recomputed. A refresh is
         the span ``reconfig.derive`` (repro_torch.obs)."""
@@ -383,40 +370,20 @@ class ReconfigTorus:
             return
         with obs.span("reconfig.derive"):
             n3 = self.cube_n ** 3
-            client = self._resolve_client()
+            client = maskquery.torus_client(self.mask_client,
+                                            self.engine_config)
             dirty = self._dirty
             partial = (dirty is not None and self._cache_epoch >= 0
-                       and client is self._engine
+                       and client is self._client
                        and len(dirty) * 4 <= self.num_cubes)
             if partial:
                 d = np.fromiter(dirty, dtype=np.int64, count=len(dirty))
                 d.sort()
                 if d.size:
-                    if client is None:
-                        self._ii[d] = fitmask.integral_image(self.occ[d])
-                        self._free_cnt[d] = n3 - self._ii[d, -1, -1, -1]
-                        for s, m in self._shape_masks.items():
-                            m[d] = False
-                            w = fitmask.window_sums_from_ii(self._ii[d], s)
-                            if w.size:
-                                m[d, :w.shape[1], :w.shape[2], :w.shape[3]] = \
-                                    w == 0
-                    else:
-                        self._free_cnt[d] = self._refresh_rows(client, d)
+                    self._free_cnt[d] = self._refresh_rows(client, d)
                     self._cube_empty[d] = self._free_cnt[d] == n3
             else:
-                if client is None:
-                    self._ii = fitmask.batched_integral_image(self.occ)
-                    self._free_cnt = n3 - self._ii[:, -1, -1, -1]
-                    self._stack_shapes = []
-                else:
-                    self._ii = None
-                    if getattr(client, "host_free", False):
-                        # Lazy client: the stack refills on demand.
-                        self._stack_shapes = []
-                    self._free_cnt = self._refresh_rows(client,
-                                                        slice(None))
-                self._bind_stack_views()
+                self._free_cnt = self._refresh_rows(client, slice(None))
                 self._cube_empty = self._free_cnt == n3
             # Best-fit ordering: least leftover first, non-empty cubes break
             # ties (the piece size shifts every key equally, so one key
@@ -430,7 +397,7 @@ class ReconfigTorus:
             self._n_nonempty_elig = int(
                 (~self._cube_empty & (self.dedicated < 0)).sum())
             self._elig_order = None
-            self._engine = client
+            self._client = client
             self._sorted_cands = {}
             self._dirty = set()
             self._cache_epoch = self._epoch
@@ -450,15 +417,10 @@ class ReconfigTorus:
             self._stack[rows, :k] = out != 0
         return client.free_counts(occ)
 
-    def _bind_stack_views(self) -> None:
-        """Point ``_shape_masks`` at the stack's columns."""
-        stack = self._stack
-        self._shape_masks = {s: stack[:, k]
-                             for k, s in enumerate(self._stack_shapes)}
-
     def _stack_column(self, shape: Dims) -> np.ndarray:
         """Append ``shape`` as the stack's next column, growing its
-        capacity geometrically, and return the column's view."""
+        capacity geometrically (and rebinding every column's view), and
+        return the column's view."""
         k = len(self._stack_shapes)
         if self._stack is None or k == self._stack.shape[1]:
             grown = np.zeros((self.num_cubes, max(8, 2 * k))
@@ -466,7 +428,8 @@ class ReconfigTorus:
             if k:
                 grown[:, :k] = self._stack[:, :k]
             self._stack = grown
-            self._bind_stack_views()
+            self._shape_masks = {s: grown[:, j]
+                                 for j, s in enumerate(self._stack_shapes)}
         self._stack_shapes.append(shape)
         m = self._shape_masks[shape] = self._stack[:, k]
         return m
@@ -531,38 +494,20 @@ class ReconfigTorus:
     def _shape_fit_mask(self, shape: Dims) -> np.ndarray:
         """Full-grid fit mask for one sub-block shape across ALL cubes:
         bool (C, n, n, n), True where the shape fits in free space with
-        its corner at that cell. This is the one engine-vs-host routing
-        point for sub-block freeness — the host path extracts window
-        sums from the per-epoch batched integral image; on a mask client
-        the mask is a column of the stack that each refresh brings up to
-        date in one round with the free counts, and a shape not yet
-        stacked is asked for alone and appended — and every per-local
-        query (:meth:`_block_free_mask`, the cube assignment, the
-        vectorized single-cube search) is a view into it. Memoized per
-        shape per epoch; place/release patch only the rows of cubes
-        they touched. Computing a missing mask is the span
-        ``reconfig.fit_masks`` (repro_torch.obs)."""
+        its corner at that cell. The mask is a column of the stack that
+        each refresh brings up to date in one round with the free
+        counts; a shape not yet stacked is asked for alone and appended,
+        and refreshed with the rest from then on. Every per-local query
+        (:meth:`_block_free_mask`, the cube assignment, the vectorized
+        single-cube search) is a view into it. Asking for a missing
+        mask is the span ``reconfig.fit_masks`` (repro_torch.obs)."""
         self._derived()
         m = self._shape_masks.get(shape)
         if m is None:
             with obs.span("reconfig.fit_masks"):
-                if self._engine is None:
-                    m = np.zeros(self.occ.shape, dtype=bool)
-                    w = fitmask.window_sums_from_ii(self._ii, shape)
-                    if w.size:
-                        m[:, :w.shape[1], :w.shape[2], :w.shape[3]] = w == 0
-                    self._shape_masks[shape] = m
-                else:
-                    # Every stacked shape is current (each refresh brings
-                    # them all), so a miss asks for the new shape alone
-                    # and keeps it as a column: a device client refreshes
-                    # it with the rest from now on. A host-backed client
-                    # (numpy behind a broker), whose multibox cost is
-                    # linear in K, drops its columns at a full rebuild
-                    # and refills them lazily, like the no-client path.
-                    out = self._engine.multibox(self.occ, [shape])
-                    m = self._stack_column(shape)
-                    m[...] = out[:, 0] != 0
+                out = self._client.multibox(self.occ, [shape])
+                m = self._stack_column(shape)
+                m[...] = out[:, 0] != 0
         return m
 
     def _block_free_mask(self, local: Slice3) -> np.ndarray:

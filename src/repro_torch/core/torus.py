@@ -68,11 +68,11 @@ class StaticTorus:
     ``engine`` selects the free-box search backend — an
     :class:`~repro_torch.core.engineconfig.EngineConfig`, a registry name, or
     None for the resolved default (``fitmask_engine`` is the retained
-    legacy spelling): the ``numpy`` engine keeps the host
-    integral-image path; the default ``cuda`` engine and the other
-    tensor engines answer all candidate boxes of an epoch in one
-    multi-box pass. ``mask_client`` injects a
-    request/response client (e.g. a batching broker) at construction."""
+    legacy spelling). ``mask_client`` injects a request/response client
+    (e.g. a batching broker) at construction. Either way the torus asks
+    one client (:func:`~repro_torch.core.maskquery.torus_client`) for
+    the full-grid fit masks of an allocator step's missing candidate
+    boxes in one multi-box pass, and caches them per occupancy epoch."""
 
     @obs.span("torus.init")
     def __init__(self, dims: Dims, fitmask_engine: Optional[str] = None,
@@ -84,8 +84,7 @@ class StaticTorus:
         # resolved registry default), as call sites historically read.
         self.fitmask_engine = self.engine_config.engine
         # Request/response client (repro_torch.core.maskquery), injected at
-        # construction. None: resolve per query from the engine config
-        # (engine registry / numpy host path).
+        # construction. None: resolve per query from the engine config.
         self.mask_client: Optional[maskquery.MaskQueryClient] = mask_client
         # Topology-event listeners (repro_torch.core.events): notified on
         # every commit/release so a scheduler service can push
@@ -104,31 +103,17 @@ class StaticTorus:
         self.num_failed = 0
         self.cut_links: set = set()
         # Occupancy epoch: bumped on every commit/release. Derived state
-        # (integral image, per-box fit answers, busy count) is cached per
-        # epoch so one allocator step reuses a single cumsum across all
-        # fold-box queries. Direct writes to ``occ`` must be followed by
-        # ``bump_epoch()``.
+        # (per-box fit masks and answers, busy count) is cached per
+        # epoch, so one allocator step asks for its boxes' masks once.
+        # Direct writes to ``occ`` must be followed by ``bump_epoch()``.
         self._epoch = 0
         self._busy = 0
         self._fit_epoch = -1
-        self._fit_ii: Optional[np.ndarray] = None
         self._fit_origin: Dict[Dims, Optional[Coord]] = {}
         self._fit_count: Dict[Dims, int] = {}
-        # Engine path: candidate boxes ever queried (the fold-box set
-        # stabilizes after the first few jobs), and their per-epoch
-        # full-grid fit masks — all filled by ONE multi-box pass.
-        self._seen_boxes: set = set()
         self._box_masks: Dict[Dims, np.ndarray] = {}
 
     # ------------------------------------------------------------------
-    def _resolve_client(self) -> Optional[maskquery.MaskQueryClient]:
-        """The client this torus submits mask work to: the installed
-        one, else the engine registry's inline client, else ``None``
-        (the numpy host integral-image path below)."""
-        if self.mask_client is not None:
-            return self.mask_client
-        return maskquery.resolve_mask_client(self.engine_config)
-
     def bump_epoch(self) -> None:
         """Invalidate cached occupancy-derived state (call after any
         direct mutation of ``occ``)."""
@@ -136,69 +121,42 @@ class StaticTorus:
         self._busy = int(self.occ.sum())
 
     def _fit_state(self) -> None:
-        """Roll the per-epoch caches. The host integral image itself is
-        built lazily (:meth:`_host_ii`) so accelerator-engine runs never
-        pay for a cumsum they won't read."""
+        """Roll the per-epoch caches."""
         if self._fit_epoch != self._epoch:
-            self._fit_ii = None
             self._fit_origin = {}
             self._fit_count = {}
             self._box_masks = {}
             self._fit_epoch = self._epoch
 
-    def _host_ii(self) -> np.ndarray:
-        from . import fitmask
-        if self._fit_ii is None:
-            self._fit_ii = fitmask.integral_image(self.occ)
-        return self._fit_ii
+    def _fill_masks(self, boxes: List[Dims]) -> None:
+        """Ask the client for the fit masks of ``boxes`` (sorted, none
+        cached at this epoch) in one multi-box pass, and cache each
+        plane as a bool mask."""
+        client = maskquery.torus_client(self.mask_client, self.engine_config)
+        out = client.multibox(self.occ[None], boxes)[0]
+        for k, b in enumerate(boxes):
+            self._box_masks[b] = out[k] != 0
 
     def _fit_mask_for(self, box: Dims) -> np.ndarray:
-        """Full-grid bool fit mask for one box at the current epoch.
-        With an accelerator engine, every box seen so far is answered
-        by a single multi-box pass per epoch (one on-chip integral image
-        shared across the whole candidate set); the numpy path extracts
-        windows from the shared host integral image."""
-        client = self._resolve_client()
-        if client is None:
-            from . import fitmask
-            m = np.zeros(self.dims, dtype=bool)
-            s = fitmask.window_sums_from_ii(self._host_ii(), box)
-            if s.size:
-                m[:s.shape[0], :s.shape[1], :s.shape[2]] = s == 0
-            return m
-        self._fit_state()  # epoch roll also resets _box_masks
+        """Full-grid bool fit mask for one box at the current epoch:
+        the cached plane, which the step's prefetch has usually
+        filled, else the client's answer for this box alone."""
+        self._fit_state()
         if box not in self._box_masks:
-            # No prefetch declared this box: answer every seen-but-
-            # uncomputed box in one pass (first miss of an epoch fills
-            # the whole set; prefetched masks are never recomputed).
-            self._seen_boxes.add(box)
-            missing = sorted(b for b in self._seen_boxes
-                             if b not in self._box_masks)
-            out = client.multibox(self.occ[None], missing)[0]
-            for k, b in enumerate(missing):
-                self._box_masks[b] = out[k] != 0
+            self._fill_masks([box])
         return self._box_masks[box]
 
     @obs.span("torus.prefetch")
     def prefetch_boxes(self, boxes) -> None:
-        """Declare an allocator step's candidate boxes up front so an
-        accelerator engine answers them all in one multi-box pass —
-        exactly the step's missing boxes, not the historical union
-        (stale candidates from other job shapes would only pad the K
-        axis with work nobody reads this epoch). The numpy host path
-        is already amortized by the shared integral image, so this is
-        a no-op there."""
-        client = self._resolve_client()
-        if client is None:
-            return
+        """Declare an allocator step's candidate boxes up front so the
+        client answers them all in one multi-box pass. Only the step's
+        missing boxes are asked for: boxes of other job shapes would
+        only pad the K axis with work nobody reads this epoch."""
         self._fit_state()
-        fresh = [tuple(int(v) for v in b) for b in boxes]
-        self._seen_boxes.update(fresh)
-        missing = sorted(b for b in set(fresh) if b not in self._box_masks)
+        missing = sorted({tuple(int(v) for v in b) for b in boxes}
+                         - self._box_masks.keys())
         if missing:
-            out = client.multibox(self.occ[None], missing)[0]
-            for k, b in enumerate(missing):
-                self._box_masks[b] = out[k] != 0
+            self._fill_masks(missing)
 
     # ------------------------------------------------------------------
     @property
@@ -237,8 +195,8 @@ class StaticTorus:
 
     def find_free_box(self, box: Dims) -> Optional[Coord]:
         """First (lexicographic) origin where an un-wrapped a×b×c box of
-        free XPUs exists, or None. All queries at one occupancy epoch
-        share a single integral image; repeated boxes are memoized."""
+        free XPUs exists, or None. Read off the box's fit mask at this
+        occupancy epoch; repeated boxes are memoized."""
         box = tuple(int(b) for b in box)
         self._fit_state()
         if box not in self._fit_origin:

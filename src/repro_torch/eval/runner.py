@@ -402,9 +402,9 @@ class EvalRunner:
     default ``"auto"`` runs fleets on a device engine (``cuda``,
     ``torch``), sized from the pending count and worker width, and the
     per-task path on the host ``numpy`` engine. That split is not a
-    measured optimum: on the card the ``cuda`` fleet has so far been
-    slower than ``cuda`` per task (``PERF.md`` §5), and the default is
-    an open item of ``ROADMAP.md``.
+    measured optimum: whether ``cuda`` per task beats ``cuda`` fleets on
+    the card is undecided, and waits for the per-task cell that
+    ``ROADMAP.md`` Queue 3 item 1 asks for.
     """
 
     def __init__(self, checkpoint_dir: Optional[str] = None,

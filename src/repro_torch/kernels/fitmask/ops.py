@@ -62,7 +62,9 @@ class FitmaskEngine:
         that a batching client should pad to a few bucketed shapes.
     ``host_free``
         True when the engine computes on the host with cost linear in
-        the number of boxes; toruses then ask only for the shape in hand.
+        the number of boxes; a fleet's broker then drains rather than
+        waits for a quorum and answers free counts inline, and the
+        eval runner runs such an engine per task.
     """
 
     name = "base"

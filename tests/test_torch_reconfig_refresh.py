@@ -44,8 +44,8 @@ def _random_fill(rt: ReconfigTorus, rng, steps=14):
 
 
 def _torus(kind: str, num_xpus: int, cube_n: int) -> ReconfigTorus:
-    """The port's host path, or the port on a ``QueryBroker`` over the
-    ``torch`` engine on the CPU (the stacked mask cache)."""
+    """The port on the host ``numpy`` engine, or on a ``QueryBroker``
+    over the ``torch`` engine on the CPU."""
     if kind == "host":
         return ReconfigTorus(num_xpus, cube_n, engine="numpy")
     broker = QueryBroker(EngineConfig("torch", device="cpu"))
@@ -69,13 +69,22 @@ def _assert_matches_reference(rt: ReconfigTorus, shape) -> None:
     assert np.array_equal(rt._cube_empty, ref._cube_empty)
 
 
+def _assert_stacked(rt: ReconfigTorus) -> None:
+    """Every cached mask is a column of the one stack, in stack order."""
+    assert list(rt._shape_masks) == rt._stack_shapes
+    assert rt._stack.shape[1] >= len(rt._stack_shapes)
+    for s in rt._stack_shapes:
+        assert rt._shape_masks[s].base is rt._stack
+
+
 @pytest.mark.parametrize("kind", ["host", "broker"])
 @pytest.mark.parametrize("num_xpus,cube_n", [(4096, 2), (4096, 4)])
 def test_partial_refresh_matches_reference(num_xpus, cube_n, kind):
     """A commit touching few cubes takes the partial-refresh path; the
     derived state equals the reference's from-scratch rebuild after a
     partial refresh each way, a full rebuild, and the growth of the mask
-    stack past its first capacity."""
+    stack past its first capacity; on either client every cached mask
+    stays a column of the stack."""
     rng = np.random.default_rng(7)
     rt = _torus(kind, num_xpus, cube_n)
     _random_fill(rt, rng, steps=10)
@@ -93,6 +102,7 @@ def test_partial_refresh_matches_reference(num_xpus, cube_n, kind):
 
     rt.bump_epoch()                    # full rebuild
     _assert_matches_reference(rt, shape)
+    _assert_stacked(rt)
 
     # More shapes than the stack's first capacity (8 columns), each
     # asked at its own epoch, then partial refreshes of all of them (a
@@ -104,16 +114,16 @@ def test_partial_refresh_matches_reference(num_xpus, cube_n, kind):
         rt.commit(777, rt.place_fold(fold))
         rt.release(777)
     assert set(shapes[:12]) <= set(rt._shape_masks)
-    if kind == "broker":
-        assert rt._stack.shape[1] >= len(rt._stack_shapes) \
-            >= min(12, len(shapes))
-        for s in rt._stack_shapes:
-            assert rt._shape_masks[s].base is rt._stack
+    assert len(rt._stack_shapes) >= min(12, len(shapes))
+    _assert_stacked(rt)
     plan = rt.place_fold(fold)
     rt.commit(12346, plan)
     _assert_matches_reference(rt, shape)
     rt.release(12346)
     _assert_matches_reference(rt, shape)
+    rt.bump_epoch()                    # full rebuild keeps every column
+    _assert_matches_reference(rt, shape)
+    _assert_stacked(rt)
     rt.check_invariants()
 
 
