@@ -18,11 +18,13 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
+
 from .. import obs
-from .folding import Fold, enumerate_folds, fold_links, verify_fold
-from .geometry import Coord, Dims, JobShape, is_torus_neighbor, volume
+from .folding import Fold, enumerate_folds, ring_edge_index, verify_fold
+from .geometry import Coord, Dims, JobShape, volume
 from .reconfig import ReconfigPlan, ReconfigTorus
-from .torus import StaticTorus, canon_link
+from .torus import StaticTorus
 
 
 def shape_key(shape: JobShape) -> Dims:
@@ -154,37 +156,39 @@ class _StaticBase(PlacementPolicy):
     @obs.span("torus.commit")
     def _commit_fold(self, job_id: int, fold: Fold, origin: Coord,
                      broken: Tuple[int, ...]) -> Placement:
-        coords = []
-        d0, d1, d2 = fold.job_dims
-        for i in range(d0):
-            for j in range(d1):
-                for k in range(d2):
-                    e = fold.embed((i, j, k))
-                    coords.append(tuple(o + v for o, v in zip(origin, e)))
+        # XPUs in ring-traversal (C-order logical) order: ``mapping``'s.
+        o = np.asarray(origin, dtype=np.int64)
+        local = np.asarray(fold.mapping, dtype=np.int64)
+        coords = list(map(tuple, (local + o).tolist()))
         # Links: ring edges that are physically realizable (direct or via
-        # an available wrap link); broken closures consume no link. A
-        # cut link (chaos layer) cannot be claimed — the ring routes
+        # an available wrap link); broken closures consume no link. Every
+        # test runs on box-local ends: the origin cancels in each
+        # difference and in ``canon_link``'s lexicographic order.
+        iu, iv = ring_edge_index(fold.job_dims)
+        u, v = local[iu], local[iv]
+        dims = np.asarray(self.torus.dims, dtype=np.int64)
+        ad = np.abs(u - v)
+        hops = np.where(self.torus.wrap_flags(), np.minimum(ad, dims - ad), ad)
+        neighbor = hops.sum(axis=1) == 1  # is_torus_neighbor
+        # physical only if inside box or via full-span wrap
+        wrap = np.asarray(self._wrap_for_box(fold.box, origin))
+        physical = (ad <= 1).all(axis=1) | ((ad == dims - 1) & wrap).any(axis=1)
+        u, v = u[neighbor & physical], v[neighbor & physical]
+        d = v - u
+        u_first = d[np.arange(len(d)), np.argmax(d != 0, axis=1)] >= 0
+        lo = np.where(u_first[:, None], u, v) + o
+        hi = np.where(u_first[:, None], v, u) + o
+        links = list(zip(map(tuple, lo.tolist()), map(tuple, hi.tolist())))
+        # A cut link (chaos layer) cannot be claimed — the ring routes
         # around it, so its axis joins the broken set (same 17% slowdown
         # the paper charges any broken ring).
-        wrap = self._wrap_for_box(fold.box, origin)
-        links = []
         cut = self.torus.cut_links
-        extra_broken: set = set()
-        for (u, v) in fold_links(fold, origin, self.torus.dims):
-            if is_torus_neighbor(u, v, self.torus.dims, self.torus.wrap_flags()):
-                # physical only if inside box or via full-span wrap
-                direct = all(abs(a - b) <= 1 for a, b in zip(u, v))
-                if direct or any(
-                        wrap[ax] and abs(u[ax] - v[ax]) == self.torus.dims[ax] - 1
-                        for ax in range(3)):
-                    l = canon_link(u, v)
-                    if cut and l in cut:
-                        extra_broken.add(next(
-                            ax for ax in range(3) if u[ax] != v[ax]))
-                    else:
-                        links.append(l)
-        if extra_broken:
-            broken = tuple(sorted(set(broken) | extra_broken))
+        if cut:
+            extra_broken = {next(ax for ax in range(3) if l[0][ax] != l[1][ax])
+                            for l in links if l in cut}
+            if extra_broken:
+                links = [l for l in links if l not in cut]
+                broken = tuple(sorted(set(broken) | extra_broken))
         meta = {"fold": str(fold), "kind": fold.kind, "box": fold.box,
                 "origin": origin, "broken_rings": broken}
         self.torus.commit(job_id, coords, links, meta)

@@ -197,17 +197,37 @@ def _verify_fold_reference(fold: Fold,
     return True, sorted(broken)
 
 
+def ring_edge_index(job_dims: Dims) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`ring_edges` as flat C-order node indices ``(iu, iv)``, in
+    the same order: by the node ``u``, then by axis."""
+    n = volume(job_dims)
+    idx = np.arange(n).reshape(job_dims)
+    nxt = np.empty((n, 3), dtype=np.int64)
+    keep = np.zeros((n, 3), dtype=bool)
+    for ax, d in enumerate(job_dims):
+        if d < 2:
+            continue
+        nxt[:, ax] = np.roll(idx, -1, axis=ax).ravel()  # v = u+1 (mod d)
+        if d == 2:
+            # a 2-ring is a single duplex link: keep only the u[ax]==0 edge
+            first = np.zeros(job_dims, dtype=bool)
+            first[(slice(None),) * ax + (0,)] = True
+            keep[:, ax] = first.ravel()
+        else:
+            keep[:, ax] = True
+    return np.nonzero(keep)[0], nxt[keep]
+
+
 def fold_links(fold: Fold, origin: Coord,
                torus_dims: Dims) -> List[Tuple[Coord, Coord]]:
     """Physical links used by the fold placed at ``origin``. Wrap edges
     connect the two box faces; they are physical only when the box spans
     the full wrap extent (callers check wrap availability separately)."""
-    links = []
-    for (u, v, _ax) in ring_edges(fold.job_dims):
-        pu = tuple(o + e for o, e in zip(origin, fold.embed(u)))
-        pv = tuple(o + e for o, e in zip(origin, fold.embed(v)))
-        links.append((pu, pv))  # type: ignore[arg-type]
-    return links
+    iu, iv = ring_edge_index(fold.job_dims)
+    placed = np.asarray(fold.mapping, dtype=np.int64) + \
+        np.asarray(origin, dtype=np.int64)
+    return list(zip(map(tuple, placed[iu].tolist()),
+                    map(tuple, placed[iv].tolist())))
 
 
 # ----------------------------------------------------------------------

@@ -41,6 +41,11 @@ def canon_link(u: Coord, v: Coord) -> Link:
     return (u, v) if u <= v else (v, u)
 
 
+def _cell_index(coords: Sequence[Coord]) -> Tuple[np.ndarray, ...]:
+    """``coords`` as one fancy index into a grid: an index array per axis."""
+    return tuple(np.asarray(coords, dtype=np.intp).reshape(-1, 3).T)
+
+
 @dataclass
 class Allocation:
     """A committed placement.
@@ -259,18 +264,19 @@ class StaticTorus:
         links = frozenset(links)
         if len(set(coords)) != len(coords):
             raise ValueError("duplicate XPUs in allocation")
-        for c in coords:
-            if self.occ[c]:
-                raise ValueError(f"XPU {c} already owned by {self.owner[c]}")
+        cells = _cell_index(coords)
+        taken = self.occ[cells]
+        if taken.any():
+            c = coords[int(np.argmax(taken))]  # the first, in coords order
+            raise ValueError(f"XPU {c} already owned by {self.owner[c]}")
         for l in links:
             if l in self.link_owner:
                 raise ValueError(
                     f"link {l} already owned by job {self.link_owner[l]}")
             if l in self.cut_links:
                 raise ValueError(f"link {l} is cut (fault injected)")
-        for c in coords:
-            self.occ[c] = True
-            self.owner[c] = job_id
+        self.occ[cells] = True
+        self.owner[cells] = job_id
         for l in links:
             self.link_owner[l] = job_id
         self._epoch += 1
@@ -294,9 +300,9 @@ class StaticTorus:
 
     def release(self, job_id: int) -> None:
         alloc = self.allocations.pop(job_id)
-        for c in alloc.coords:
-            self.occ[c] = False
-            self.owner[c] = -1
+        cells = _cell_index(alloc.coords)
+        self.occ[cells] = False
+        self.owner[cells] = -1
         for l in alloc.links:
             del self.link_owner[l]
         self._epoch += 1

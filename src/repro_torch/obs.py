@@ -76,9 +76,18 @@ _intervals: Optional[Deque[Tuple[str, str, int, int, int]]] = None
 
 def _after_fork_in_child() -> None:
     # A forked worker keeps the parent's aggregates (``diff`` removes
-    # them) but not a registry lock another thread may have held.
+    # them) but not a registry lock another thread may have held. Only
+    # the forking thread lives on: the others' aggregates are retired
+    # here, since a thread the fork caught starting or exiting can fail
+    # ``is_alive()`` in the child.
     global _lock
     _lock = threading.Lock()
+    me = threading.current_thread()
+    for st in _threads:
+        if st.thread is not me:
+            _walk(st.root, "", _retired)
+            _add_counters(_retired_counters, st.counters)
+    _threads[:] = [st for st in _threads if st.thread is me]
 
 
 os.register_at_fork(after_in_child=_after_fork_in_child)

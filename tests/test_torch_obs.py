@@ -7,6 +7,7 @@ their spans, and the timeline changes no schedule."""
 import gc
 import inspect
 import json
+import multiprocessing
 import threading
 import time
 
@@ -146,6 +147,41 @@ def test_threads_do_not_mix():
     # The thread has ended: its share is folded into the totals and kept.
     again = obs.totals()["spans"]["t.theirs"]
     assert again["count"] >= 1
+
+
+def _forked_view(queue):
+    live = [st.thread is threading.current_thread() for st in obs._threads]
+    queue.put((live, obs.totals()["spans"]["t.before_fork"]["count"]))
+
+
+def test_a_forked_child_retires_the_other_threads():
+    """In a forked child only the forking thread lives on: the parent's
+    other threads are retired at the fork, their aggregates kept, and
+    no ``is_alive()`` is asked of a thread the child does not have."""
+    ready, release = threading.Event(), threading.Event()
+
+    def other():
+        with obs.span("t.before_fork"):
+            pass
+        ready.set()
+        release.wait(10)
+
+    t = threading.Thread(target=other)
+    t.start()
+    try:
+        assert ready.wait(5)
+        ctx = multiprocessing.get_context("fork")
+        queue = ctx.Queue()
+        child = ctx.Process(target=_forked_view, args=(queue,))
+        child.start()
+        live, count = queue.get(timeout=30)
+        child.join(30)
+        assert child.exitcode == 0
+    finally:
+        release.set()
+        t.join(10)
+    assert not t.is_alive()
+    assert all(live) and count >= 1
 
 
 def test_many_threads_count_every_span():
