@@ -36,15 +36,6 @@ def small_cell(name: str, seed: int = 98_765_432_101) -> harness.Cell:
     return _small(SPEC, name, seed)
 
 
-@pytest.fixture
-def restore_program():
-    from repro_torch.eval import runner
-    from repro_torch.sim import simulator
-    saved = runner.run_task, simulator.Simulator.run
-    yield
-    runner.run_task, simulator.Simulator.run = saved
-
-
 def run(cell: harness.Cell, seconds: float = 1.0) -> harness.Verdict:
     return harness.run_cell(SPEC, cell, seconds, time.perf_counter())[1]
 

@@ -35,17 +35,6 @@ torch.set_num_threads(1)
 BENCH = ROOT / "bench"
 
 
-@pytest.fixture
-def restore_program():
-    """The sweep driver wraps two functions of the program to keep each
-    run's jobs; put them back after the test."""
-    from repro_torch.eval import runner
-    from repro_torch.sim import simulator
-    saved = runner.run_task, simulator.Simulator.run
-    yield
-    runner.run_task, simulator.Simulator.run = saved
-
-
 @pytest.mark.parametrize("name", [w["name"] for w in FULL["workloads"]])
 def test_cell_runs_correct_on_cpu(name, restore_program):
     cell = small_cell(FULL, name, num_jobs=40)
@@ -59,8 +48,7 @@ def test_cell_runs_correct_on_cpu(name, restore_program):
     assert all(c["value"] <= c["limit"] for c in result["checks"].values())
 
 
-@pytest.mark.parametrize("name", ["rfold-4096-c4.sweep",
-                                  "folding-4096-static.sweep"])
+@pytest.mark.parametrize("name", [w["name"] for w in FULL["workloads"]])
 def test_traced_run_reads_host_layers(name, restore_program):
     """On the CPU the profiler records no device: the device metrics find
     nothing and are left out; the program's counters are read."""
