@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core.reconfig import ReconfigTorus
 from repro_torch.core.torus import StaticTorus
 
@@ -190,6 +191,7 @@ class FaultInjector:
             raise TypeError(f"policy {policy!r} exposes no cluster model")
         self.model = model
 
+    @obs.span("chaos.victims")
     def victims(self, ev: FaultEvent) -> List[int]:
         """Job ids that must be evicted before ``ev`` can apply
         (sorted; empty for repairs)."""

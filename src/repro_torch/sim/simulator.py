@@ -32,6 +32,7 @@ import itertools
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+from repro_torch import obs
 from repro_torch.core.allocator import PlacementPolicy, shape_key
 from repro_torch.core.geometry import Dims
 from .job import Job
@@ -169,6 +170,12 @@ class Simulator:
 
     # -- chaos ----------------------------------------------------------
     def _apply_fault(self, t: float, ev) -> None:
+        obs.count("chaos.events")
+        with obs.span("chaos.repair" if ev.action == "repair"
+                      else "chaos.fault"):
+            self._apply_event(t, ev)
+
+    def _apply_event(self, t: float, ev) -> None:
         inj = self._injector
         if ev.action == "repair":
             applied = inj.apply(ev)
@@ -179,6 +186,7 @@ class Simulator:
             return
         victims = [self._running[jid] for jid in inj.victims(ev)
                    if jid in self._running]
+        obs.count("chaos.evicted", len(victims))
         for job in victims:
             self._evict(job, t)
         inj.apply(ev)
